@@ -1,0 +1,75 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/torch_kernels/`` at the root of the checkout, named by a hash of its
+source and flags, and loaded with ``ctypes``.  Nothing includes PyTorch's
+headers, so a build takes seconds, not minutes.  A failed build raises:
+there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, Tuple[ctypes.CDLL, Path]] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                           "to build the port's CUDA kernels")
+    return found
+
+
+def library_path(name: str, extra_flags=()) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def load_library(name: str, extra_flags=()) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists,
+    then load it.  The compiler's report (registers, spills) is kept beside
+    the library as ``<lib>.log``."""
+    if name in _loaded:
+        return _loaded[name][0]
+    so = library_path(name, extra_flags)
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"building {name}.cu failed:\n{' '.join(cmd)}\n"
+                               f"{res.stdout}\n{res.stderr}")
+        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    _loaded[name] = (lib, so)
+    return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler's report for the loaded build of ``name`` ('' if none)."""
+    log = _loaded[name][1].with_suffix(".log")
+    return log.read_text() if log.exists() else ""

@@ -1,0 +1,293 @@
+"""Multiresolution hash-grid encoding, forward (port of
+``instant_nvr_tpu/ops/hashgrid.py``).
+
+Levels whose dense size fits the table stay dense (flat x*n^2 + y*n + z
+rows, all dense levels in one table); finer levels are hashed with the
+uint32 prime-xor spatial hash into ``nextprime(2^log2)`` rows per level.
+8-corner gather (corner bit order: z fastest) + trilinear lerp in float32,
+then feature aggregation: scalar tables (``F * q``, one value per row, the
+part grids), sum over features, sum over levels, or concat (the deformer).
+
+The index must equal JAX's bit for bit: the uint32 products wrap, so each
+is computed in int64 and masked to 32 bits before the XOR and the modulus.
+``fd.to(int32)`` truncates toward zero like ``astype(int32)``; the corner
+is clipped after truncating and the lerp offset is measured from the
+*clipped* corner.
+
+Storage is the logical rows only: ``dense`` (max(dense_total, 1), F) and
+``hash`` (max(H, 1) * T, F), or 1-D for scalar grids.  The JAX package's
+TPU tile padding and packed (rows / (128/F), 128) layout do not exist here
+(``bridge.py`` strips or refuses them).  The JAX forward is an XLA gather,
+so this forward is a plain gather too.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+from sympy import nextprime
+from torch import nn
+
+_U32 = 0xFFFFFFFF
+
+
+class HashGridSpec(NamedTuple):
+    """Static description of one hash-grid embedder."""
+    n_levels: int
+    n_features: int
+    table_size: int               # nextprime(2**log2_hashmap_size)
+    entries_num: Tuple[int, ...]  # per-level entries per side
+    start_hash: int               # first hashed level
+    dense_offsets: Tuple[int, ...]
+    dense_total: int
+    sum: bool
+    sum_over_features: bool
+    include_input: bool
+    primes: Tuple[int, int, int]
+    scalar: bool = False          # one value per row; forward uses F * q
+
+    @property
+    def out_dim(self) -> int:
+        if self.sum:
+            d = self.n_levels if self.sum_over_features else self.n_features
+        else:
+            d = self.n_levels * self.n_features
+        return d + (3 if self.include_input else 0)
+
+    @property
+    def n_hash_levels(self) -> int:
+        return self.n_levels - self.start_hash
+
+    @property
+    def dense_rows(self) -> int:
+        return max(self.dense_total, 1)
+
+    @property
+    def hash_rows(self) -> int:
+        return max(self.n_hash_levels, 1) * self.table_size
+
+
+def make_hashgrid_spec(n_levels: int = 16, n_features_per_level: int = 16,
+                       log2_hashmap_size: int = 18, base_resolution: int = 2,
+                       b: float = 1.38, sum: bool = True,
+                       sum_over_features: bool = True,
+                       include_input: bool = True,
+                       separate_dense: bool = True,
+                       primes=(1, 19349663, 83492791),
+                       scalar_tables: bool = True,
+                       **_unused) -> HashGridSpec:
+    table_size = int(nextprime(2 ** log2_hashmap_size))
+    entries_num = tuple(int(base_resolution * b ** i) for i in range(n_levels))
+    entries_cnt = [n ** 3 for n in entries_num]
+    start_hash = n_levels
+    for i in range(n_levels):
+        if entries_cnt[i] > table_size:
+            start_hash = i
+            break
+    if not separate_dense:
+        start_hash = 0
+    offsets, total = [], 0
+    for i in range(start_hash):
+        offsets.append(total)
+        total += entries_cnt[i]
+    return HashGridSpec(
+        n_levels=n_levels, n_features=n_features_per_level,
+        table_size=table_size, entries_num=entries_num, start_hash=start_hash,
+        dense_offsets=tuple(offsets), dense_total=total, sum=sum,
+        sum_over_features=sum_over_features, include_input=include_input,
+        primes=tuple(int(p) for p in primes),
+        scalar=bool(scalar_tables and sum and sum_over_features))
+
+
+def hashgrid_init(spec: HashGridSpec, generator: torch.Generator,
+                  device) -> dict:
+    """{'dense', 'hash'} tables drawn like the JAX init: N(0, std^2) with
+    std = sqrt(2 / (T * F)); scalar grids N(0, std^2 / F), the distribution
+    of the mean of F such draws."""
+    std = math.sqrt(2.0 / (spec.table_size * spec.n_features))
+    F = spec.n_features
+
+    def make(rows):
+        if spec.scalar:
+            shape, s = (rows,), std / math.sqrt(F)
+        else:
+            shape, s = (rows, F), std
+        return s * torch.randn(shape, generator=generator, device=device)
+
+    return {"dense": make(spec.dense_rows), "hash": make(spec.hash_rows)}
+
+
+class HashTables(nn.Module):
+    """The ``dense`` and ``hash`` tables of one hash grid (logical rows)."""
+
+    def __init__(self, spec: HashGridSpec, device=None):
+        super().__init__()
+        self.spec = spec
+        cols = () if spec.scalar else (spec.n_features,)
+        self.dense = nn.Parameter(torch.empty((spec.dense_rows,) + cols,
+                                              device=device))
+        self.hash = nn.Parameter(torch.empty((spec.hash_rows,) + cols,
+                                             device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init = hashgrid_init(self.spec, generator, self.dense.device)
+        with torch.no_grad():
+            self.dense.copy_(init["dense"])
+            self.hash.copy_(init["hash"])
+
+    def tables(self, dtype=None) -> dict:
+        """{'dense', 'hash'}, cast to ``dtype`` when given."""
+        if dtype is None:
+            return {"dense": self.dense, "hash": self.hash}
+        return {"dense": self.dense.to(dtype), "hash": self.hash.to(dtype)}
+
+
+def _corner_bits() -> np.ndarray:
+    """8 corner offsets, rows 000, 001, 010, ... (z fastest)."""
+    return np.stack(np.meshgrid([0, 1], [0, 1], [0, 1], indexing="ij"),
+                    axis=-1).reshape(8, 3)
+
+
+def _corners(x01: torch.Tensor, res: torch.Tensor):
+    """Per-(level, corner, point) integer corners and trilinear weights.
+
+    x01 (N, 3) normalized points; res (L, 1) or (L, N) int32 entries per
+    side.  Returns idx3: three (L, 8, N) int64 index arrays and w (L, 8, N).
+    """
+    cbits = torch.as_tensor(_corner_bits(), device=x01.device)
+    res_f = res.to(x01.dtype)
+    nmax = res.long()
+    idx3, w = [], None
+    for d in range(3):
+        fd = x01[:, d][None, :] * (res_f - 1.0)                 # (L, N)
+        bd = fd.to(torch.int32).long()                          # trunc to 0
+        cd = cbits[:, d].long()[None, :, None]                  # (1, 8, 1)
+        hi = (nmax - 1)[:, None, :]
+        idx3.append(torch.minimum(torch.clamp(bd[:, None, :] + cd, min=0), hi))
+        off = fd - torch.minimum(torch.clamp(bd, min=0), nmax - 1).to(fd.dtype)
+        cf = cbits[:, d].to(x01.dtype)[None, :, None]
+        wd = (1.0 - cf) + (2.0 * cf - 1.0) * off[:, None, :]
+        w = wd if w is None else w * wd
+    return idx3, w
+
+
+def _hash_index(idx3, primes, table_size: int) -> torch.Tensor:
+    """uint32 prime-xor hash mod table_size, bit-exact with the JAX version."""
+    p0, p1, p2 = primes
+    h = (((idx3[0] * p0) & _U32) ^ ((idx3[1] * p1) & _U32)
+         ^ ((idx3[2] * p2) & _U32))
+    return h % table_size
+
+
+def _level_block(table: torch.Tensor, ind: torch.Tensor, ws: torch.Tensor,
+                 spec: HashGridSpec) -> torch.Tensor:
+    """Gather + corner lerp for one table.  ind/ws (n_lev, 8, N) ->
+    (n_lev, F', N) with F' = 1 for scalar grids (the contribution F * q)."""
+    if spec.scalar:
+        v = table[ind]                                          # (n_lev, 8, N)
+        return (torch.sum(ws * v, dim=1) * spec.n_features)[:, None, :]
+    feats = [torch.sum(ws * table[:, f][ind], dim=1)
+             for f in range(spec.n_features)]
+    return torch.stack(feats, dim=1)                            # (n_lev, F, N)
+
+
+def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
+                    bounds: torch.Tensor) -> torch.Tensor:
+    """Encode points.  xyz (N, 3); bounds (2, 3) -> (N, out_dim)."""
+    N = xyz.shape[0]
+    L, F = spec.n_levels, spec.n_features
+    S, H = spec.start_hash, spec.n_hash_levels
+    x01 = (xyz - bounds[0]) / (bounds[1] - bounds[0])
+    res = torch.tensor(spec.entries_num, dtype=torch.int32,
+                       device=xyz.device)[:, None]              # (L, 1)
+    idx3, w = _corners(x01, res)
+
+    vals = []
+    if S > 0:
+        nd = res[:S].long()[:, :, None]                         # (S, 1, 1)
+        ind = (idx3[0][:S] * (nd * nd) + idx3[1][:S] * nd + idx3[2][:S])
+        ind = ind + torch.tensor(spec.dense_offsets, device=xyz.device)[:, None, None]
+        vals.append(_level_block(params["dense"], ind, w[:S], spec))
+    if H > 0:
+        ind = _hash_index([i[S:] for i in idx3], spec.primes, spec.table_size)
+        ind = ind + (torch.arange(H, device=xyz.device)
+                     * spec.table_size)[:, None, None]
+        vals.append(_level_block(params["hash"], ind, w[S:], spec))
+    val = torch.cat(vals, dim=0).to(x01.dtype)                  # (L, F', N)
+
+    if spec.scalar:
+        out = val[:, 0, :].T                                    # (N, L)
+    elif spec.sum:
+        out = (torch.sum(val, dim=1).T if spec.sum_over_features
+               else torch.sum(val, dim=0).T)                    # (N, L) / (N, F)
+    else:
+        out = val.reshape(L * F, N).T                           # (N, L*F)
+    if spec.include_input:
+        out = torch.cat([x01, out], dim=-1)
+    return out
+
+
+def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
+                          pts: torch.Tensor, bounds: torch.Tensor,
+                          seg_sizes: Sequence[int]) -> torch.Tensor:
+    """Encode a part-major concatenation of points through P part grids.
+
+    Equal to :func:`hashgrid_encode` per part on ``pts[off_p: off_p + n_p]``
+    with ``bounds[p]``, concatenated; the index and weight math runs once
+    over all M points.  pts (M, 3), M == sum(seg_sizes); bounds (P, 2, 3).
+    Every spec shares n_levels / n_features / primes and the part-grid mode
+    (sum over features).  Returns (M, out_dim).
+    """
+    P = len(specs)
+    s0 = specs[0]
+    L, F = s0.n_levels, s0.n_features
+    if not all(s.n_levels == L and s.n_features == F and s.sum
+               and s.sum_over_features and s.include_input == s0.include_input
+               and s.primes == s0.primes and s.scalar == s0.scalar
+               for s in specs):
+        raise ValueError("multi_hashgrid_encode requires uniform part-grid specs")
+    M = int(sum(seg_sizes))
+    if pts.shape[0] != M:
+        raise ValueError(f"pts has {pts.shape[0]} rows, seg_sizes sum to {M}")
+    dev = pts.device
+    offs = np.cumsum([0] + list(seg_sizes))
+    pid = torch.as_tensor(np.repeat(np.arange(P), seg_sizes), device=dev)
+    b = bounds[pid]                                             # (M, 2, 3)
+    x01 = (pts - b[:, 0]) / (b[:, 1] - b[:, 0])
+    e_np = np.asarray([s.entries_num for s in specs], np.int32)[
+        np.repeat(np.arange(P), seg_sizes)].T                   # (L, M)
+    res = torch.as_tensor(e_np, device=dev)
+    idx3, w = _corners(x01, res)
+
+    n_lm = res.long()[:, None, :]                               # (L, 1, M)
+    ind_dense = idx3[0] * (n_lm * n_lm) + idx3[1] * n_lm + idx3[2]
+
+    def block_feat(tab, ind, ws):
+        """(n_lev, 8, Kp) -> (n_lev, Kp): feature sum first, f32 lerp."""
+        if s0.scalar:
+            vsum = tab[ind].to(torch.float32) * F
+        else:
+            vsum = sum(tab[:, f][ind].to(torch.float32) for f in range(F))
+        return torch.sum(ws * vsum, dim=1)
+
+    outs = []
+    for p in range(P):
+        s = specs[p]
+        o, e = int(offs[p]), int(offs[p + 1])
+        S, H = s.start_hash, s.n_hash_levels
+        blocks = []
+        if S > 0:
+            d = ind_dense[:S, :, o:e] + torch.tensor(
+                s.dense_offsets, device=dev)[:, None, None]
+            blocks.append(block_feat(params_list[p]["dense"], d, w[:S, :, o:e]))
+        if H > 0:
+            hh = _hash_index([i[S:, :, o:e] for i in idx3], s.primes, s.table_size)
+            hh = hh + (torch.arange(H, device=dev) * s.table_size)[:, None, None]
+            blocks.append(block_feat(params_list[p]["hash"], hh, w[S:, :, o:e]))
+        outs.append(torch.cat(blocks, dim=0).T)                 # (Kp, L)
+    val = torch.cat(outs, dim=0).to(x01.dtype)                  # (M, L)
+    if s0.include_input:
+        val = torch.cat([x01, val], dim=-1)
+    return val
