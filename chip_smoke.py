@@ -3,19 +3,30 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line; any failure raises (non-zero exit):
+Phases, each printing one line or more; any failure raises (non-zero exit):
   1. device: the card's name and power limit; TF32 off.
-  2. build: compiles the port's CUDA kernels from this checkout's sources.
+  2. build: compiles the port's CUDA kernels from this checkout's sources,
+     one nvcc each, all at once; prints ptxas registers and spills.
   3. kernel vs plain: each kernel against its plain PyTorch version on the
-     card, at the render path's shapes, with median times over 20 runs.
-  4. slice: renders full 512x512 synthetic frames of the full-width inb_377
-     model (random weights from a seed) through the same functions as
+     card, at the main paths' shapes, with median times over 20 runs.
+  4. render slice: full 512x512 synthetic frames of the full-width inb_377
+     model (random weights from a seed) through the functions of
      ``python -m instant_nvr_tpu_torch.run --type render``; checks the
-     outputs and that every chunk went through the kernel; then holds the
+     outputs and that every chunk went through the KNN kernel; then holds the
      card's render against the CPU's (plain path) on a small view.
+  5. train slice: full-width inb_377 MSE train steps (1,024 rays x 64
+     samples) through the functions of ``python -m
+     instant_nvr_tpu_torch.train_net``: 3 warm-up steps, then 5 windows of 20
+     timed steps; checks the loss and that every table gradient went through
+     the two scatter kernels; one torch.profiler window of 5 steps gives the
+     device busy share and the top kernels.
+  6. train step, card vs CPU: one full-width step on 16 rays from the same
+     weights and random draws; loss, per-leaf gradients and post-Adam
+     parameters at bf16-sized tolerances.
 Then one JSON line of kernel numbers, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
+import copy
 import json
 import os
 import subprocess
@@ -25,6 +36,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(HERE, "configs", "inb", "inb_377.yaml")
 N_TIMED = 20
+WARMUP_STEPS, WINDOWS, WINDOW_STEPS, PROFILE_STEPS = 3, 5, 20, 5
 
 
 def phase(label, **kv):
@@ -91,6 +103,296 @@ def knn_case(name, query, part_pts, part_pbw, lengths, knn):
     return err, ms, plain_ms
 
 
+SCATTER_TOL = ("|kernel-plain| <= 1 bf16 ulp of the row + n_row*2^-24*sum|payload| "
+               "(f32 sums in another order)")
+
+
+def scatter_case(name, fn, plain, keys, payload, n_rows, level_offsets,
+                 exact=False):
+    """Scatter kernel vs its plain version; returns (max_abs_err, ms, plain_ms).
+    Both sum in f32 and round to bf16 once: a row may differ by one bf16 ulp
+    plus the f32 reordering bound, which covers rows whose sum cancels.
+    ``exact``: payloads whose sums are exact in f32 in any order, so the
+    two must agree bit for bit."""
+    import torch
+    got = fn(keys, payload, n_rows, level_offsets)
+    ref = plain(keys, payload, n_rows, level_offsets)
+    torch.cuda.synchronize()
+    F = payload.shape[1]
+    if got.shape != (n_rows, F) or got.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite output")
+    k = keys.long()
+    count = torch.zeros(n_rows, device=k.device).index_add_(
+        0, k, torch.ones_like(k, dtype=torch.float32))
+    mass = torch.zeros((n_rows, F), device=k.device).index_add_(
+        0, k, payload.float().abs())
+    top = torch.maximum(g.abs(), r.abs())
+    _, e = torch.frexp(top)                    # top = m * 2^e, m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(g), e - 8) * (top > 0)
+    diff = (g - r).abs()
+    bad = diff > ulp + count[:, None] * 2.0 ** -24 * mass
+    if exact:
+        bad |= diff > 0
+    if bad.any():
+        i = int(bad.any(-1).nonzero()[0, 0])
+        raise AssertionError(f"{name}: {int(bad.sum())} entries out of tolerance; "
+                             f"row {i}: kernel {g[i].tolist()} plain {r[i].tolist()}")
+    err = diff.max().item()
+    ms = cuda_median_ms(lambda: fn(keys, payload, n_rows, level_offsets))
+    plain_ms = cuda_median_ms(lambda: plain(keys, payload, n_rows, level_offsets))
+    phase("kernel", case=name, R=keys.shape[0], F=F, n_rows=n_rows,
+          levels=len(level_offsets) - 1, max_abs_err=f"{err:.3e}",
+          rows_differing=int((diff > 0).any(-1).sum()),
+          tol=repr("bit-exact" if exact else SCATTER_TOL),
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
+    return err, ms, plain_ms
+
+
+def level_keys(rng, level_offsets, per_level):
+    """Level-major keys, uniform within each level's row window."""
+    import numpy as np
+    return np.concatenate([rng.integers(a, b, per_level) for a, b in
+                           zip(level_offsets[:-1], level_offsets[1:])]).astype(np.int32)
+
+
+def scatter_cases(cfg, dev, rng):
+    """Both scatter kernels against their plain versions at the train path's
+    shapes: {kernel: (max_abs_err, ms, plain_ms) of its first case}."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.ops import scatter
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    bf = lambda a: t(a.astype(np.float32)).to(torch.bfloat16)
+    seg = (scatter.segmented_scatter_add, scatter.segmented_scatter_add_plain)
+    one = (scatter.onehot_scatter_add, scatter.onehot_scatter_add_plain)
+    mspec = inb.build_model_spec(cfg)
+    body = mspec.part_embeds[mspec.partnames.index("body")]
+    arm = mspec.part_embeds[mspec.partnames.index("larm")]
+    out, errs = {}, {"segmented_scatter_add": [], "onehot_scatter_add": []}
+
+    def run(kernel, name, fns, keys, payload, n_rows, offs, exact=False):
+        res = scatter_case(name, *fns, t(keys), payload, n_rows, offs, exact)
+        errs[kernel].append(res[0])
+        out.setdefault(kernel, res)
+
+    # body hash table: 10 levels x 8 corners x 8,192 points
+    _, rows, offs = body.tables()[-1]
+    R = (len(offs) - 1) * 8 * 8192
+    run("segmented_scatter_add", "body-hash", seg, level_keys(rng, offs, 8 * 8192),
+        bf(rng.normal(size=(R, 1))), rows, offs)
+    # pileup: every record on one key of level 2 (levels 0, 1, 3 empty),
+    # R not a multiple of 128; small-integer payloads sum exactly
+    R = 100003
+    offs4 = tuple(range(0, 4 * 50000 + 1, 50000))
+    run("segmented_scatter_add", "pileup", seg, np.full(R, 123457, np.int32),
+        bf(rng.integers(-8, 9, size=(R, 1))), offs4[-1], offs4, exact=True)
+    # F = 2, 4 levels
+    R, offs2 = 262144, tuple(range(0, 4 * 262147 + 1, 262147))
+    run("segmented_scatter_add", "F2", seg, level_keys(rng, offs2, R // 4),
+        bf(rng.normal(size=(R, 2))), offs2[-1], offs2)
+    # deformer hash table: 2 levels x 8 corners x 22,528 points, per column
+    _, rows, offs = mspec.deformer.embed.tables()[-1]
+    R = (len(offs) - 1) * 8 * 22528
+    run("onehot_scatter_add", "deformer-hash", one, level_keys(rng, offs, 8 * 22528),
+        bf(rng.normal(size=(R, 1))), rows, offs)
+    # arm dense table: 9 levels x 8 corners x 2,048 points
+    _, rows, offs = arm.tables()[0]
+    R = (len(offs) - 1) * 8 * 2048
+    run("onehot_scatter_add", "arm-dense", one, level_keys(rng, offs, 8 * 2048),
+        bf(rng.normal(size=(R, 1))), rows, offs)
+    return {k: (max(errs[k]),) + v[1:] for k, v in out.items()}
+
+
+def reset_counts(knn, scatter):
+    knn.knn_blend.launches = 0
+    scatter.segmented_scatter_add.launches = 0
+    scatter.onehot_scatter_add.launches = 0
+    scatter.exact_scatter_add.calls = 0
+
+
+def profile_steps(trainer, gen):
+    """One torch.profiler window of PROFILE_STEPS steps -> (busy share, top
+    kernels, top ops by the device time of the kernels they launch), or
+    (None, [], []) when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            trainer.step(trainer.state, trainer.batch, generator=gen)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kern, ops = [], []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        # device kernels and copies; not the annotation ranges drawn on the
+        # device timeline (Optimizer.step#...), which overlap them
+        if getattr(e, "is_user_annotation", False):
+            continue
+        (kern if e.device_type == DeviceType.CUDA else ops).append((us, e.count, e.key))
+    busy = sum(k[0] for k in kern)
+    if busy <= 0:
+        return None, [], []
+
+    def top(rows):
+        rows.sort(reverse=True)
+        return [f"{name[:60]}:{us / 1000 / PROFILE_STEPS:.3f}ms/step:x{n // PROFILE_STEPS}"
+                for us, n, name in rows[:10] if us > 0]
+    return busy / wall_us, top(kern), top(ops)
+
+
+def train_slice(cfg, dev, knn, scatter):
+    """Full-width MSE steps through train_net's functions; returns the
+    launch counts of the run."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import train_net
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    trainer = train_net.build_trainer(cfg, dev, seed=0)
+    routes = table_grad_launches(trainer.mspec, trainer.rspec)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_rays = int(trainer.batch["ray_o"].shape[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(knn, scatter)
+    losses, rates = [], []
+    for _ in range(WARMUP_STEPS):
+        _, stats = trainer.step(trainer.state, trainer.batch, generator=gen)
+        losses.append(stats["loss"])
+    torch.cuda.synchronize()
+    for _ in range(WINDOWS):
+        t0 = time.perf_counter()
+        for _ in range(WINDOW_STEPS):
+            _, stats = trainer.step(trainer.state, trainer.batch, generator=gen)
+            losses.append(stats["loss"])
+        torch.cuda.synchronize()
+        rates.append(WINDOW_STEPS * n_rays / (time.perf_counter() - t0))
+    steps = len(losses)
+    counts = {"knn_blend": knn.knn_blend.launches,
+              "segmented_scatter_add": scatter.segmented_scatter_add.launches,
+              "onehot_scatter_add": scatter.onehot_scatter_add.launches}
+    exact_calls = scatter.exact_scatter_add.calls
+    peak = torch.cuda.max_memory_allocated()
+    loss = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(loss).all():
+        raise AssertionError(f"non-finite loss at steps "
+                             f"{np.nonzero(~np.isfinite(loss))[0]}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"loss did not fall: step 0 {loss[0]}, "
+                             f"step {steps - 1} {loss[-1]}")
+    want = {"knn_blend": steps,
+            "segmented_scatter_add": steps * routes["segmented"],
+            "onehot_scatter_add": steps * routes["onehot"]}
+    if counts != want or routes["exact"] or exact_calls:
+        raise AssertionError(f"launches {counts} != {want} (routes per step "
+                             f"{dict(routes)}, exact index_add_ calls {exact_calls})")
+    rates.sort()
+    med = rates[len(rates) // 2]
+    phase("train", config="inb_377", rays=n_rays, samples=trainer.rspec.n_samples,
+          steps=steps, windows=f"{WINDOWS}x{WINDOW_STEPS}",
+          train_rays_per_sec=f"{med:.1f}", min=f"{rates[0]:.1f}",
+          max=f"{rates[-1]:.1f}", ms_per_step=f"{1000 * n_rays / med:.2f}",
+          peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{loss[0]:.5f}",
+          loss_last=f"{loss[-1]:.5f}", routes_per_step=repr(dict(routes)),
+          launches=repr(counts))
+    busy, top_kernels, top_ops = profile_steps(trainer, gen)
+    phase("train-profile", steps=PROFILE_STEPS,
+          device_busy=("not measured" if busy is None else f"{busy:.3f}"),
+          top_kernels=repr(top_kernels), top_ops=repr(top_ops))
+    return counts
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def compare_grads(got_tree, want_tree):
+    """bf16-sized gradient agreement, leaf by leaf: relative L2 error <=
+    2e-2 and max error <= 5e-2 of the leaf's largest entry (the kernels'
+    f32 sums in another order than the plain versions', and bf16 operands
+    whose f32 inputs differ in the last bit, each flip a bf16 rounding:
+    2^-8).  Returns the worst relative L2 error."""
+    import numpy as np
+    want = dict(_leaves(want_tree))
+    worst = 0.0
+    for k, g in _leaves(got_tree):
+        w = want[k]
+        scale = np.linalg.norm(w)
+        if scale == 0:
+            if g.any():
+                raise AssertionError(f"grad {k}: zero on one side only")
+            continue
+        err = g.astype(np.float64) - w
+        rel = np.linalg.norm(err) / scale
+        worst = max(worst, rel)
+        if rel > 2e-2 or np.abs(err).max() > 5e-2 * np.abs(w).max():
+            raise AssertionError(f"grad {k}: rel_l2 {rel:.3e} max "
+                                 f"{np.abs(err).max() / np.abs(w).max():.3e}")
+    return worst
+
+
+def card_vs_cpu_step(cfg, dev):
+    """One full-width MSE step on 16 rays, card vs CPU, same weights and
+    draws."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import bridge, run, train_net
+    from instant_nvr_tpu_torch.renderer.inb_renderer import pair_budget
+    from instant_nvr_tpu_torch.train.state import create_train_state
+    from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
+    cpu = torch.device("cpu")
+    mspec, rspec, model_cpu = run.build(cfg, cpu, seed=0)
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    step = make_train_step(mspec, rspec, make_loss_weights(cfg))
+    batch = train_net.synthetic_batch(cfg, cpu, n_rays=16)
+    gen = torch.Generator().manual_seed(1)
+    S = rspec.n_samples
+    draws = {"t_rand": torch.rand((16, S), generator=gen),
+             "pair_noise": (torch.rand((pair_budget(mspec, rspec, 16 * S), 3),
+                                       generator=gen) - 0.5) * rspec.pair_range}
+    out = []
+    for d, model in ((cpu, model_cpu), (dev, model_gpu)):
+        state = create_train_state(cfg, model)
+        _, stats = step(state, {k: v.to(d) for k, v in batch.items()},
+                        draws={k: v.to(d) for k, v in draws.items()})
+        out.append((float(stats["loss"]), bridge.tree_from_model(model, "grad"),
+                    bridge.tree_from_model(model, "data")))
+    (loss_c, grad_c, par_c), (loss_g, grad_g, par_g) = out
+    if not np.isfinite(loss_g) or abs(loss_g - loss_c) > 1e-3 * abs(loss_c):
+        raise AssertionError(f"loss card {loss_g} vs cpu {loss_c}")
+    worst = compare_grads(grad_g, grad_c)
+    # Adam's first update is lr * g / (|g| + eps): an entry moves by lr with
+    # the sign of its gradient, so an entry whose gradient is ~0 may move by
+    # up to lr either way on either side
+    lr = cfg.train.lr
+    moved = 0
+    want = dict(_leaves(par_c))
+    for k, p in _leaves(par_g):
+        d = np.abs(p - want[k])
+        if d.max() > 2.1 * lr:
+            raise AssertionError(f"param {k}: differs by {d.max()} > 2.1 lr")
+        moved += int((d > 1e-6).sum())
+    phase("train-cuda-vs-cpu", rays=16, loss_card=f"{loss_g:.6f}",
+          loss_cpu=f"{loss_c:.6f}", worst_grad_rel_l2=f"{worst:.3e}",
+          params_differing=moved,
+          tol=repr("loss rtol 1e-3; grads bf16-sized; params <= 2.1 lr"))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -106,7 +408,7 @@ def main() -> int:
     from instant_nvr_tpu_torch.config import make_cfg
     from instant_nvr_tpu_torch.datasets import synthetic
     from instant_nvr_tpu_torch.eval.runner import AutoBudgetRenderer, eval_chunk
-    from instant_nvr_tpu_torch.ops import knn
+    from instant_nvr_tpu_torch.ops import knn, scatter
     from instant_nvr_tpu_torch import cuda_build, run
 
     # 1. device
@@ -116,15 +418,21 @@ def main() -> int:
     phase("device", name=repr(kind), count=torch.cuda.device_count(),
           nvidia_smi=repr(smi), torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build: every kernel at once, then load each
     t0 = time.perf_counter()
+    cuda_build.build_libraries()
     knn.load_kernel()
-    ptxas = [ln.strip() for ln in cuda_build.build_log("knn_blend").splitlines()
-             if "registers" in ln]
-    phase("build", kernel="knn_blend", seconds=f"{time.perf_counter() - t0:.2f}",
-          ptxas=repr(ptxas))
+    scatter.load_segmented_kernel()
+    scatter.load_onehot_kernel()
+    for name in cuda_build.KERNELS:
+        ptxas = [ln.strip() for ln in cuda_build.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        phase("build", kernel=name, ptxas=repr(ptxas))
+    phase("build", kernels=len(cuda_build.KERNELS),
+          seconds=f"{time.perf_counter() - t0:.2f}")
 
-    # 3. kernel vs plain, at the render path's shapes
+    # 3. kernel vs plain, at the render and train paths' shapes
+    cfg = make_cfg(CFG)
     rng = np.random.default_rng(0)
     scene = synthetic.make_scene(n_verts=6890, grid=32)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -147,13 +455,16 @@ def main() -> int:
         t((0.3 * rng.normal(size=(P, M, 3))).astype(np.float32)),
         t(rng.uniform(size=(P, M, 24)).astype(np.float32)), t(lengths), knn)
     errs.append(e)
+    scatter_res = scatter_cases(cfg, dev, rng)
 
-    # 4. the slice: full-width inb_377 through run --type render's functions
-    cfg = make_cfg(CFG)
+    # 4. the render slice: full-width inb_377 through run --type render's
+    #    functions
     torch.cuda.reset_peak_memory_stats()
-    knn.knn_blend.launches = 0
+    reset_counts(knn, scatter)
     r = run.render_frames(cfg, dev, frames=3, seed=0)
     launches = knn.knn_blend.launches
+    if scatter.segmented_scatter_add.launches or scatter.onehot_scatter_add.launches:
+        raise AssertionError("the render path launched a scatter kernel")
     out = r["out"]
     rgb, acc = out["rgb_map"], out["acc_map"]
     if rgb.shape != (r["rays"], 3) or acc.shape != (r["rays"],):
@@ -195,14 +506,33 @@ def main() -> int:
     # summation order (~1e-6) — a threshold flip would show as one sample
     np.testing.assert_allclose(gpu["rgb_map"], cpu["rgb_map"], rtol=1e-3,
                                atol=1e-3)
+    del model, gpu, cpu
+
+    # 5. the train slice: full-width inb_377 MSE steps
+    counts = train_slice(cfg, dev, knn, scatter)
+    counts["knn_blend"] += launches
+
+    # 6. one train step, card vs CPU
+    card_vs_cpu_step(cfg, dev)
 
     ms, pms = times[0]
-    print(json.dumps({"kernels": [{
+    rows = [{
         "name": "knn_blend", "route": "cuda",
         "source": "instant_nvr_tpu_torch/csrc/knn_blend.cu",
         "replaces": "instant_nvr_tpu/ops/pallas/knn_pallas.py:111",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": pms}]}))
+        "launches": counts["knn_blend"], "max_abs_err": max(errs),
+        "ms": ms, "plain_ms": pms}]
+    for name, src, replaces in (
+            ("segmented_scatter_add", "segmented_scatter.cu",
+             "instant_nvr_tpu/ops/pallas/segmented_scatter.py:156"),
+            ("onehot_scatter_add", "onehot_scatter.cu",
+             "instant_nvr_tpu/ops/pallas/onehot_scatter.py:77")):
+        err, ms, pms = scatter_res[name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"instant_nvr_tpu_torch/csrc/{src}",
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": pms})
+    print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
-"""Carry JAX parameters into the port.
+"""Carry JAX parameters into the port, and the port's back out.
 
 ``params_from_jax(tree_np, mspec)`` takes ``jax.tree.map(np.asarray,
 params)`` of an ``instant_nvr_tpu.models.inb.init_params`` tree (or a
 restored checkpoint) and returns a state dict for
 :class:`~instant_nvr_tpu_torch.models.inb.InbModel` (``load_state_dict``).
-It needs only numpy: nothing here imports jax.
+``tree_from_model(model, which)`` goes the other way, for parameters or
+gradients, so tests compare the two frameworks leaf by leaf.  It needs only
+numpy: nothing here imports jax.
 
 The JAX tables may carry rows beyond their logical size (TPU scatter-kernel
 tile padding, zero by construction); they are dropped after checking that
@@ -70,3 +72,33 @@ def params_from_jax(tree_np, mspec: ModelSpec) -> Dict[str, torch.Tensor]:
                                        dspec.hash_rows, "deformer.embed.hash")
     sd.update(_layers("deformer.mlp", d["mlp"]))
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+
+
+def tree_from_model(model, which: str = "data") -> dict:
+    """The model's parameters (``which="data"``) or their gradients
+    (``"grad"``) as the JAX parameter tree: nested dicts and lists of numpy
+    arrays, tables at their logical rows (no tile padding).  A parameter
+    without a gradient gives zeros."""
+    if which not in ("data", "grad"):
+        raise ValueError(f"which must be 'data' or 'grad', not {which!r}")
+
+    def leaf(p):
+        t = p.detach() if which == "data" else p.grad
+        if t is None:
+            t = torch.zeros_like(p)
+        return t.detach().float().cpu().numpy()
+
+    def tables(t):
+        return {"dense": leaf(t.dense), "hash": leaf(t.hash)}
+
+    def layers(ls):
+        return [{"w": leaf(layer.w), "b": leaf(layer.b)} for layer in ls]
+
+    return {
+        "embed": {name: tables(t) for name, t in model.embed.items()},
+        "occ": layers(model.occ),
+        "rgb": {gkey: layers(ls) for gkey, ls in model.rgb.items()},
+        "latent": leaf(model.latent),
+        "deformer": {"embed": tables(model.deformer.embed),
+                     "mlp": layers(model.deformer.mlp)},
+    }

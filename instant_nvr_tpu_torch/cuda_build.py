@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
-compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/torch_kernels/`` at the root of the checkout, named by a hash of its
-source and flags, and loaded with ``ctypes``.  Nothing includes PyTorch's
-headers, so a build takes seconds, not minutes.  A failed build raises:
-there is no fallback.
+Each ``csrc/<name>.cu`` of :data:`KERNELS` has a plain C interface.  At
+first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library under ``build/torch_kernels/`` at the root of the checkout, named by
+a hash of its source and flags, and loaded with ``ctypes``.  Nothing
+includes PyTorch's headers, so a build takes seconds, not minutes.
+:func:`build_libraries` compiles several sources at once, one ``nvcc``
+each.  A failed build raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -23,6 +24,14 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# every kernel source -> its extra nvcc flags
+KERNELS: Dict[str, Tuple[str, ...]] = {
+    # the distances must round like the plain version: no fused multiply-add
+    "knn_blend": ("--fmad=false",),
+    "segmented_scatter": (),
+    "onehot_scatter": (),
+}
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, Path]] = {}
 
@@ -39,31 +48,48 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str, extra_flags=()) -> Path:
+def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
+    h.update(" ".join(NVCC_FLAGS + KERNELS[name]).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def load_library(name: str, extra_flags=()) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists,
-    then load it.  The compiler's report (registers, spills) is kept beside
-    the library as ``<lib>.log``."""
-    if name in _loaded:
-        return _loaded[name][0]
-    so = library_path(name, extra_flags)
-    if not so.exists():
+def build_libraries(names: Iterable[str] = tuple(KERNELS)) -> None:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that has no build yet,
+    one ``nvcc`` per source, all started at once.  The compiler's report
+    (registers, spills) is kept beside each library as ``<lib>.log``.
+    Raises naming every source that failed."""
+    procs = []
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, *KERNELS[name], "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {name}.cu failed:\n{' '.join(cmd)}\n"
-                               f"{res.stdout}\n{res.stderr}")
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        procs.append((name, so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, so, tmp, cmd, proc in procs:
+        report = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"building {name}.cu failed:\n{' '.join(cmd)}\n{report}")
+            continue
+        so.with_suffix(".log").write_text(report)
         os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source exists,
+    then load it."""
+    if name in _loaded:
+        return _loaded[name][0]
+    build_libraries([name])
+    so = library_path(name)
     lib = ctypes.CDLL(str(so))
     _loaded[name] = (lib, so)
     return lib

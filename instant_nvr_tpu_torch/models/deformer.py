@@ -26,10 +26,11 @@ class DeformerSpec(NamedTuple):
     scale: float = 0.05
 
 
-def make_deformer_spec(embed_kwargs: dict, primes,
-                       scalar_ok: bool = True) -> DeformerSpec:
+def make_deformer_spec(embed_kwargs: dict, primes, scalar_ok: bool = True,
+                       exact_grads: bool = False) -> DeformerSpec:
     return DeformerSpec(embed=make_hashgrid_spec(
-        primes=primes, scalar_tables=scalar_ok, **embed_kwargs))
+        primes=primes, scalar_tables=scalar_ok, exact_grads=exact_grads,
+        **embed_kwargs))
 
 
 class Deformer(nn.Module):
@@ -49,6 +50,8 @@ def deformer_apply(spec: DeformerSpec, params: Deformer, pts: torch.Tensor,
 
     The deformer's tables stay float32 even when the part grids compute in
     bf16 (as in JAX: they are tiny); ``compute_dtype`` applies to its MLP.
+    Their per-column gathers round the gradient to bf16 for the scatter
+    kernels unless the spec sets ``exact_grads`` (ops/hashgrid.py).
     """
     uv = pts_sample_volume(pts, tuv, tbounds, sizes=tuv_sizes)      # (N, 2)
     t = torch.as_tensor(frame_t, dtype=uv.dtype, device=uv.device)

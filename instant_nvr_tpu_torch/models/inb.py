@@ -8,9 +8,11 @@
   -> scatter back to the full sample set.
 
 Every shape is fixed per chunk; validity masks carry the sparsity, so the
-forward never waits on the device for a count.  ``forward_parts`` (the JAX
-package's own per-part oracle) and ``select_mode: partition`` are not
-ported.  Parameters live in :class:`InbModel` under the JAX tree's names.
+forward never waits on the device for a count.  The part tables are cast
+to the gather dtype in the forward; the JAX package's bf16 table shadow
+only fuses that cast into its Adam update and gives the same numbers.
+``forward_parts`` (the JAX package's own per-part oracle) and
+``select_mode: partition`` are not ported.  Parameters live in :class:`InbModel` under the JAX tree's names.
 """
 from __future__ import annotations
 
@@ -34,6 +36,14 @@ from .nn import kaiming_normal_, make_mlp, mlp_apply_stacked
 
 def _round_budget(n: int, mult: int = 128) -> int:
     return max(mult, ((int(n) + mult - 1) // mult) * mult)
+
+
+def budgets(spec: "ModelSpec", n_samples: int) -> Tuple[int, Tuple[int, ...]]:
+    """(K, Kps): the cull budget for ``n_samples`` samples and each part's
+    budget; part p's selected points are its leading Kp slots."""
+    K = min(_round_budget(spec.cull_frac * n_samples), _round_budget(n_samples))
+    return K, tuple(min(_round_budget(spec.part_frac * s * K), K)
+                    for s in spec.part_budget_scales[:spec.num_parts])
 
 
 class ModelSpec(NamedTuple):
@@ -87,12 +97,15 @@ def build_model_spec(cfg) -> ModelSpec:
     scalar_ok = (cfg.train.get("optim", "adam") == "adam"
                  and not cfg.train.get("weight_decay", 0.0)
                  and cfg.get("scalar_tables", True))
+    # full-precision runs keep exact f32 table gradients (ops/hashgrid.py)
+    exact = cfg.get("grid_compute_dtype", "bfloat16") == "float32"
     default_color = (cfg.network.color.d_hidden, cfg.network.color.n_layers)
     part_embeds, rgb_archs = [], []
     for p in partnames:
         node = cfg.partnet[p]
         part_embeds.append(make_hashgrid_spec(primes=primes,
                                               scalar_tables=scalar_ok,
+                                              exact_grads=exact,
                                               **node.embedder.kwargs.to_dict()))
         if "color_network" in node and "kwargs" in node.color_network:
             kw = node.color_network.kwargs
@@ -100,7 +113,7 @@ def build_model_spec(cfg) -> ModelSpec:
         else:
             rgb_archs.append(default_color)
     deformer = make_deformer_spec(cfg.tpose_deformer.embedder.kwargs.to_dict(),
-                                  primes, scalar_ok=scalar_ok)
+                                  primes, scalar_ok=scalar_ok, exact_grads=exact)
     return ModelSpec(
         partnames=partnames,
         part_embeds=tuple(part_embeds),
@@ -187,11 +200,24 @@ def _cast_tables(spec: ModelSpec, model: InbModel) -> List[dict]:
 # forward
 # --------------------------------------------------------------------------
 
+def resd_fn(spec: ModelSpec, model: InbModel, pts: torch.Tensor,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Deformer residual at arbitrary canonical points (the pair
+    regularizer's jittered neighbours)."""
+    return deformer_apply(spec.deformer, model.deformer, pts, batch["tuv"],
+                          batch["tbounds"], batch["frame_dim"],
+                          tuv_sizes=batch.get("tuv_sizes"),
+                          compute_dtype=spec.cdtype)
+
+
 def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
-            viewdir: torch.Tensor, batch: Dict[str, torch.Tensor]
-            ) -> Dict[str, torch.Tensor]:
+            viewdir: torch.Tensor, batch: Dict[str, torch.Tensor],
+            train: bool = False) -> Dict[str, torch.Tensor]:
     """wpts/viewdir (N, 3) flattened ray samples -> dict with raw (N, 4),
     occ (N, 1) and the budget telemetry (cull/part overflow and need).
+    ``train`` adds the selected points' residual ``resd`` (M, 3), bigpose
+    points ``tpts`` (M, 3), occupancy ``tocc`` (M, 1) and validity ``tflag``
+    (M,), part-major, and the cull validity ``cull_valid`` (K,).
 
     ``batch`` carries the per-frame SMPL metadata: R (3,3), Th (1,3),
     A/big_A (24,4,4), pbw (X,Y,Z,25) + pbw_sizes + pbounds, part_pts /
@@ -212,7 +238,7 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     #    channel is sampled; channels interpolate independently)
     pnorm = pts_sample_volume(pose_pts, batch["pbw"][..., -1:],
                               batch["pbounds"], sizes=batch.get("pbw_sizes"))[:, 0]
-    K = min(_round_budget(spec.cull_frac * N), _round_budget(N))
+    K, Kps = budgets(spec, N)
     cidx, cvalid = topk_select(pnorm, K, spec.smpl_thresh)
     cpts = pose_pts[cidx].contiguous()                     # (K, 3)
     cdirs = pose_dirs[cidx]
@@ -227,8 +253,6 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
 
     # 4. batched per-part selection into the (P, Kmax) padded layout; part
     #    p's budget Kp is the leading slice of one Kmax top-k
-    Kps = tuple(min(_round_budget(spec.part_frac * spec.part_budget_scales[p] * K), K)
-                for p in range(P))
     Kmax = max(Kps)
     offs = np.cumsum((0,) + Kps)
     kp_arr = torch.tensor(Kps, device=dev)
@@ -337,10 +361,22 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     sel_surv = torch.sum(cvalid)
     flag_total = torch.sum(pflag)
     sel_total = torch.sum(all_valid)
-    return {
+    ret = {
         "raw": raw_full, "occ": occ_full,
         "cull_overflow": (true_surv - sel_surv) / torch.clamp(true_surv, min=1),
         "part_overflow": (flag_total - sel_total) / torch.clamp(flag_total, min=1),
         "cull_need": true_surv / N,
         "part_need": torch.sum(pflag, dim=0) / K,
     }
+    if train:
+        # the (M, 1) occupancies: a constant-index gather from (P, Kmax)
+        tocc_idx = torch.as_tensor(np.concatenate(
+            [p * Kmax + np.arange(Kps[p]) for p in range(P)]), device=dev)
+        ret.update({
+            "resd": all_resd,
+            "tpts": init_bigpose,
+            "tocc": occ_v.reshape(P * Kmax, 1)[tocc_idx],
+            "tflag": all_valid,
+            "cull_valid": cvalid,
+        })
+    return ret

@@ -19,18 +19,44 @@ Storage is the logical rows only: ``dense`` (max(dense_total, 1), F) and
 TPU tile padding and packed (rows / (128/F), 128) layout do not exist here
 (``bridge.py`` strips or refuses them).  The JAX forward is an XLA gather,
 so this forward is a plain gather too.
+
+Backward.  Every table read goes through :func:`scalar_table_gather` (one
+value per row: scalar grids, and one feature column of a small table) or
+:func:`table_gather` (whole rows of a big non-scalar table, where the JAX
+package stores the table packed), autograd Functions whose backward is a
+scatter-add of the gather's cotangent, routed by :func:`grad_route`:
+
+* a bf16 table, or an f32 table whose gather allows rounding (the
+  deformer's columns unless ``exact_grads``), takes the bf16 kernels of
+  ``ops/scatter.py``: ``segmented_scatter_add`` from ``KERNEL_MIN_ROWS``
+  rows up, ``onehot_scatter_add`` below, when its widest level window fits
+  a block's shared memory (otherwise ``segmented_scatter_add``);
+* any other f32 table (``grid_compute_dtype: float32`` sets
+  ``exact_grads``) gets the exact f32 ``index_add_``, as the JAX package
+  gives it XLA's f32 scatter.
+
+The index streams are (n_lev, 8, N) arrays, level-major when flattened,
+which the kernels require.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
 from sympy import nextprime
 from torch import nn
 
+from . import scatter
+
 _U32 = 0xFFFFFFFF
+
+# The JAX package's routing threshold (kernel_min_rows,
+# instant_nvr_tpu/ops/device_rates.py:43), kept as the reference's rule: it
+# was measured on a TPU, not on the H100, and re-tuning it on the card is
+# later work.  It also decides which non-scalar tables gather whole rows.
+KERNEL_MIN_ROWS = 190_000
 
 
 class HashGridSpec(NamedTuple):
@@ -47,6 +73,8 @@ class HashGridSpec(NamedTuple):
     include_input: bool
     primes: Tuple[int, int, int]
     scalar: bool = False          # one value per row; forward uses F * q
+    # f32 tables keep exact f32 gradients (no bf16 rounding in the backward)
+    exact_grads: bool = False
 
     @property
     def out_dim(self) -> int:
@@ -68,6 +96,18 @@ class HashGridSpec(NamedTuple):
     def hash_rows(self) -> int:
         return max(self.n_hash_levels, 1) * self.table_size
 
+    def tables(self) -> List[Tuple[str, int, Tuple[int, ...]]]:
+        """(name, rows, level_offsets) of each table the encoding reads."""
+        out = []
+        if self.start_hash > 0:
+            out.append(("dense", self.dense_rows,
+                        self.dense_offsets + (self.dense_total,)))
+        if self.n_hash_levels > 0:
+            out.append(("hash", self.hash_rows,
+                        tuple(l * self.table_size
+                              for l in range(self.n_hash_levels + 1))))
+        return out
+
 
 def make_hashgrid_spec(n_levels: int = 16, n_features_per_level: int = 16,
                        log2_hashmap_size: int = 18, base_resolution: int = 2,
@@ -77,6 +117,7 @@ def make_hashgrid_spec(n_levels: int = 16, n_features_per_level: int = 16,
                        separate_dense: bool = True,
                        primes=(1, 19349663, 83492791),
                        scalar_tables: bool = True,
+                       exact_grads: bool = False,
                        **_unused) -> HashGridSpec:
     table_size = int(nextprime(2 ** log2_hashmap_size))
     entries_num = tuple(int(base_resolution * b ** i) for i in range(n_levels))
@@ -98,7 +139,8 @@ def make_hashgrid_spec(n_levels: int = 16, n_features_per_level: int = 16,
         dense_offsets=tuple(offsets), dense_total=total, sum=sum,
         sum_over_features=sum_over_features, include_input=include_input,
         primes=tuple(int(p) for p in primes),
-        scalar=bool(scalar_tables and sum and sum_over_features))
+        scalar=bool(scalar_tables and sum and sum_over_features),
+        exact_grads=bool(exact_grads))
 
 
 def hashgrid_init(spec: HashGridSpec, generator: torch.Generator,
@@ -181,16 +223,124 @@ def _hash_index(idx3, primes, table_size: int) -> torch.Tensor:
     return h % table_size
 
 
+# --------------------------------------------------------------------------
+# gathers with a scatter-add backward
+# --------------------------------------------------------------------------
+
+def grad_route(n_rows: int, F: int, level_offsets: Sequence[int],
+               table_dtype: torch.dtype, allow_rounded: bool) -> str:
+    """Where the gradient of a gather from an (n_rows, F) table goes:
+    'segmented' | 'onehot' (the kernels of ops/scatter.py, bf16 payload) or
+    'exact' (f32 index_add_).  Mirrors the JAX package's
+    ``_table_gather_bwd`` / ``_scalar_gather_bwd`` (see module doc)."""
+    if table_dtype != torch.bfloat16 and not allow_rounded:
+        return "exact"
+    if n_rows < KERNEL_MIN_ROWS and scatter.onehot_fits(level_offsets, F):
+        return "onehot"
+    return "segmented"
+
+
+_SCATTER = {"segmented": scatter.segmented_scatter_add,
+            "onehot": scatter.onehot_scatter_add}
+
+
+def _table_grad(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
+                level_offsets: Tuple[int, ...], table_dtype: torch.dtype,
+                allow_rounded: bool) -> torch.Tensor:
+    """idx (n_lev, ...) level-major rows, g (R, F) cotangent -> (n_rows, F)
+    gradient in the table's dtype."""
+    route = grad_route(n_rows, g.shape[1], level_offsets, table_dtype,
+                       allow_rounded)
+    if route == "exact":
+        return scatter.exact_scatter_add(idx, g.to(table_dtype), n_rows)
+    # the payload is rounded to bf16 once (a bf16 cotangent is unchanged);
+    # the bf16 result converts to an f32 table's dtype exactly
+    grad = _SCATTER[route](idx.reshape(-1).to(torch.int32),
+                           g.to(torch.bfloat16).contiguous(), n_rows,
+                           level_offsets)
+    return grad.to(table_dtype)
+
+
+class _TableGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, level_offsets, allow_rounded):
+        ctx.save_for_backward(idx)
+        ctx.meta = (table.shape, table.dtype, level_offsets, allow_rounded)
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        (idx,) = ctx.saved_tensors
+        shape, dtype, level_offsets, allow_rounded = ctx.meta
+        grad = _table_grad(idx, g.reshape(idx.numel(), -1), shape[0],
+                           level_offsets, dtype, allow_rounded)
+        return grad.reshape(shape), None, None, None
+
+
+def table_gather(table: torch.Tensor, idx: torch.Tensor,
+                 level_offsets: Tuple[int, ...],
+                 allow_rounded: bool = False) -> torch.Tensor:
+    """``table[idx]`` for an (n_rows,) or (n_rows, F) table; idx (n_lev, ...)
+    with level l's rows inside ``level_offsets[l]:level_offsets[l + 1]``.
+    ``allow_rounded`` lets an f32 table's gradient take the bf16 kernels."""
+    return _TableGather.apply(table, idx, level_offsets, allow_rounded)
+
+
+# the JAX package's name for the gather from a 1-D (scalar) table
+scalar_table_gather = table_gather
+
+
+def gather_plan(spec: HashGridSpec, n_rows: int) -> str:
+    """How the encoders read a table: 'scalar' (one value per row), 'rows'
+    (whole rows: the non-scalar tables the JAX package stores packed) or
+    'columns' (one gather per feature column, as the JAX package reads
+    its small tables)."""
+    F = spec.n_features
+    if spec.scalar:
+        return "scalar"
+    if n_rows >= KERNEL_MIN_ROWS and F < 128 and 128 % F == 0:
+        return "rows"
+    return "columns"
+
+
+def _gather(spec: HashGridSpec, table: torch.Tensor, ind: torch.Tensor,
+            level_offsets: Tuple[int, ...]) -> torch.Tensor:
+    """ind (n_lev, 8, N) -> (n_lev, 8, N, F') in the table's dtype: F' = 1
+    for scalar grids (the value q), else the F features."""
+    plan = gather_plan(spec, table.shape[0])
+    rounded = not spec.exact_grads
+    if plan == "scalar":
+        return scalar_table_gather(table, ind, level_offsets)[..., None]
+    if plan == "rows":
+        return table_gather(table, ind, level_offsets, rounded)
+    return torch.stack([scalar_table_gather(table[:, f], ind, level_offsets,
+                                            rounded)
+                        for f in range(spec.n_features)], dim=-1)
+
+
+def encode_grad_routes(spec: HashGridSpec, table_dtype: torch.dtype) -> List[str]:
+    """The :func:`grad_route` of every table gradient one backward of an
+    encoding through ``spec`` computes, in order (one per gather call)."""
+    routes = []
+    for _, rows, level_offsets in spec.tables():
+        plan = gather_plan(spec, rows)
+        rounded = plan != "scalar" and not spec.exact_grads
+        F = spec.n_features if plan == "rows" else 1
+        n_calls = spec.n_features if plan == "columns" else 1
+        routes += [grad_route(rows, F, level_offsets, table_dtype, rounded)] * n_calls
+    return routes
+
+
 def _level_block(table: torch.Tensor, ind: torch.Tensor, ws: torch.Tensor,
-                 spec: HashGridSpec) -> torch.Tensor:
+                 spec: HashGridSpec, level_offsets) -> torch.Tensor:
     """Gather + corner lerp for one table.  ind/ws (n_lev, 8, N) ->
     (n_lev, F', N) with F' = 1 for scalar grids (the contribution F * q)."""
+    v = _gather(spec, table, ind, level_offsets)                # (n_lev, 8, N, F')
     if spec.scalar:
-        v = table[ind]                                          # (n_lev, 8, N)
-        return (torch.sum(ws * v, dim=1) * spec.n_features)[:, None, :]
-    feats = [torch.sum(ws * table[:, f][ind], dim=1)
-             for f in range(spec.n_features)]
-    return torch.stack(feats, dim=1)                            # (n_lev, F, N)
+        return (torch.sum(ws * v[..., 0], dim=1) * spec.n_features)[:, None, :]
+    return torch.sum(ws[..., None] * v, dim=1).movedim(-1, 1)  # (n_lev, F, N)
 
 
 def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
@@ -205,16 +355,19 @@ def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
     idx3, w = _corners(x01, res)
 
     vals = []
-    if S > 0:
-        nd = res[:S].long()[:, :, None]                         # (S, 1, 1)
-        ind = (idx3[0][:S] * (nd * nd) + idx3[1][:S] * nd + idx3[2][:S])
-        ind = ind + torch.tensor(spec.dense_offsets, device=xyz.device)[:, None, None]
-        vals.append(_level_block(params["dense"], ind, w[:S], spec))
-    if H > 0:
-        ind = _hash_index([i[S:] for i in idx3], spec.primes, spec.table_size)
-        ind = ind + (torch.arange(H, device=xyz.device)
-                     * spec.table_size)[:, None, None]
-        vals.append(_level_block(params["hash"], ind, w[S:], spec))
+    for name, _, level_offsets in spec.tables():
+        if name == "dense":
+            nd = res[:S].long()[:, :, None]                     # (S, 1, 1)
+            ind = (idx3[0][:S] * (nd * nd) + idx3[1][:S] * nd + idx3[2][:S])
+            ind = ind + torch.tensor(spec.dense_offsets,
+                                     device=xyz.device)[:, None, None]
+            ws = w[:S]
+        else:
+            ind = _hash_index([i[S:] for i in idx3], spec.primes, spec.table_size)
+            ind = ind + (torch.arange(H, device=xyz.device)
+                         * spec.table_size)[:, None, None]
+            ws = w[S:]
+        vals.append(_level_block(params[name], ind, ws, spec, level_offsets))
     val = torch.cat(vals, dim=0).to(x01.dtype)                  # (L, F', N)
 
     if spec.scalar:
@@ -264,12 +417,10 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
     n_lm = res.long()[:, None, :]                               # (L, 1, M)
     ind_dense = idx3[0] * (n_lm * n_lm) + idx3[1] * n_lm + idx3[2]
 
-    def block_feat(tab, ind, ws):
+    def block_feat(s, tab, ind, ws, level_offsets):
         """(n_lev, 8, Kp) -> (n_lev, Kp): feature sum first, f32 lerp."""
-        if s0.scalar:
-            vsum = tab[ind].to(torch.float32) * F
-        else:
-            vsum = sum(tab[:, f][ind].to(torch.float32) for f in range(F))
+        v = _gather(s, tab, ind, level_offsets).to(torch.float32)
+        vsum = v[..., 0] * F if s0.scalar else torch.sum(v, dim=-1)
         return torch.sum(ws * vsum, dim=1)
 
     outs = []
@@ -278,14 +429,19 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
         o, e = int(offs[p]), int(offs[p + 1])
         S, H = s.start_hash, s.n_hash_levels
         blocks = []
-        if S > 0:
-            d = ind_dense[:S, :, o:e] + torch.tensor(
-                s.dense_offsets, device=dev)[:, None, None]
-            blocks.append(block_feat(params_list[p]["dense"], d, w[:S, :, o:e]))
-        if H > 0:
-            hh = _hash_index([i[S:, :, o:e] for i in idx3], s.primes, s.table_size)
-            hh = hh + (torch.arange(H, device=dev) * s.table_size)[:, None, None]
-            blocks.append(block_feat(params_list[p]["hash"], hh, w[S:, :, o:e]))
+        for name, _, level_offsets in s.tables():
+            if name == "dense":
+                ind = ind_dense[:S, :, o:e] + torch.tensor(
+                    s.dense_offsets, device=dev)[:, None, None]
+                ws = w[:S, :, o:e]
+            else:
+                ind = _hash_index([i[S:, :, o:e] for i in idx3], s.primes,
+                                  s.table_size)
+                ind = ind + (torch.arange(H, device=dev)
+                             * s.table_size)[:, None, None]
+                ws = w[S:, :, o:e]
+            blocks.append(block_feat(s, params_list[p][name], ind, ws,
+                                     level_offsets))
         outs.append(torch.cat(blocks, dim=0).T)                 # (Kp, L)
     val = torch.cat(outs, dim=0).to(x01.dtype)                  # (M, L)
     if s0.include_input:

@@ -19,7 +19,6 @@ import torch
 
 _FAR = 1e9            # masked (padded) vertex slots, as in the JAX version
 KERNEL_K = 4          # the kernel's neighbour count (kK in knn_blend.cu)
-_NVCC_EXTRA = ("--fmad=false",)
 
 
 def knn_blend_plain(query: torch.Tensor, part_pts: torch.Tensor,
@@ -98,7 +97,7 @@ def load_kernel():
     """Build (if needed) and load the CUDA library -> its launch function.
     Raises if the build fails."""
     from ..cuda_build import load_library
-    lib = load_library("knn_blend", _NVCC_EXTRA)
+    lib = load_library("knn_blend")
     fn = lib.knn_blend_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4

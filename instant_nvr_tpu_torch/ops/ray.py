@@ -1,8 +1,8 @@
 """Ray generation and depth sampling (port of ``instant_nvr_tpu/ops/ray.py``).
 
 Ray generation is host-side numpy, copied as is; depth sampling runs on the
-tensors' device.  Only the deterministic (``perturb=False``) sampler is
-ported: the forward render path never jitters.
+tensors' device.  ``jax.random`` keys become a ``torch.Generator`` or a
+pre-drawn tensor.
 """
 from __future__ import annotations
 
@@ -51,12 +51,29 @@ def get_near_far_np(bounds: np.ndarray, ray_o: np.ndarray, ray_d: np.ndarray):
 # device-side
 # --------------------------------------------------------------------------
 
-def stratified_z_vals(near: torch.Tensor, far: torch.Tensor,
-                      n_samples: int) -> torch.Tensor:
-    """Evenly spaced depth samples per ray.  near/far (..., R) -> (..., R, S)."""
+def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,
+                      perturb: bool = False,
+                      generator: torch.Generator | None = None,
+                      t_rand: torch.Tensor | None = None) -> torch.Tensor:
+    """Stratified depth samples per ray.  near/far (..., R) -> (..., R, S).
+
+    Evenly spaced unless ``perturb``: then each sample moves uniformly
+    within its stratum, by ``t_rand`` (..., R, S) in [0, 1) when given (the
+    parity tests pass the JAX package's draws), else by draws from
+    ``generator``.
+    """
     t_vals = torch.linspace(0.0, 1.0, n_samples, dtype=near.dtype,
                             device=near.device)
-    return near[..., None] * (1.0 - t_vals) + far[..., None] * t_vals
+    z_vals = near[..., None] * (1.0 - t_vals) + far[..., None] * t_vals
+    if perturb:
+        mids = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+        upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+        lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+        if t_rand is None:
+            t_rand = torch.rand(z_vals.shape, generator=generator,
+                                dtype=z_vals.dtype, device=z_vals.device)
+        z_vals = lower + (upper - lower) * t_rand
+    return z_vals
 
 
 def z_to_points(ray_o: torch.Tensor, ray_d: torch.Tensor,

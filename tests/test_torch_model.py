@@ -157,10 +157,19 @@ def test_render_rays_full_width_matches_jax():
 
 
 def test_render_rays_train_not_ported():
+    """render_rays(train=True) is ported now (held against JAX in
+    tests/test_torch_train.py); what the train path still lacks, patch mode
+    and remat, raises naming ROADMAP."""
+    from instant_nvr_tpu_torch.train import step as tstep
     c = tiny("float32")
+    rspec = rend.RenderSpec(n_samples=8)
+    with torch.no_grad():
+        out = rend.render_rays(c.mspec, rspec, c.model, c.batch, train=True,
+                               generator=torch.Generator().manual_seed(0))
+    assert {"resd", "pair_resd0", "pair_resd1", "pair_valid",
+            "reg_distortion"} <= set(out)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rend.render_rays(c.mspec, rend.RenderSpec(n_samples=8), c.model,
-                         c.batch, train=True)
+        tstep.make_train_step(c.mspec, rspec, tstep.LossWeights(remat=True))
 
 
 # -- chunked eval renderer ------------------------------------------------------
