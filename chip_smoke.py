@@ -8,7 +8,12 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
   2. build: compiles the port's CUDA kernels from this checkout's sources,
      one nvcc each, all at once; prints ptxas registers and spills.
   3. kernel vs plain: each kernel against its plain PyTorch version on the
-     card, at the main paths' shapes, with median times over 20 runs.
+     card, at the main paths' shapes, with median times over 20 runs, the
+     time of one PyTorch library call for the same function where there is
+     one, and the kernel's bound (the larger of its float32 operations over
+     67 TFLOP/s and its bytes over 3.35 TB/s: the H100 SXM's published
+     peaks); ``knn_blend_unfused`` (``knn_topk`` + ``aggregate``) against
+     ``knn_blend``.
   4. render slice: full 512x512 synthetic frames of the full-width inb_377
      model (random weights from a seed) through the functions of
      ``python -m instant_nvr_tpu_torch.run --type render``; checks the
@@ -23,8 +28,14 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
   6. train step, card vs CPU: one full-width step on 16 rays from the same
      weights and random draws; loss, per-leaf gradients and post-Adam
      parameters at bf16-sized tolerances.
-Then one JSON line of kernel numbers, the ``nvidia-smi`` name/power line,
-and last ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+  7. self-check: ``python -m instant_nvr_tpu_torch.tools.cuda_selfcheck``'s
+     checks in this process (both KNN routes, the scatters at F=16/1 and
+     2/1 on wide levels, matmul precision, 11 full-width train steps); fails
+     on any failure and checks every kernel's launch count, ``knn_topk``'s
+     included.
+Then one JSON line of kernel numbers (launches: the render, train and
+self-check phases together), the ``nvidia-smi`` name/power line, and last
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import copy
 import json
@@ -66,12 +77,48 @@ def cuda_median_ms(fn, n=N_TIMED):
     return times[len(times) // 2]
 
 
-def knn_case(name, query, part_pts, part_pbw, lengths, knn):
-    """Kernel vs plain on one input; returns (max_abs_err, ms, plain_ms)."""
+# the H100 SXM's published peaks at 700 W: float32 outside the tensor
+# cores, and device memory
+F32_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for
+    ``flops`` float32 operations and ``nbytes`` bytes of device memory."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def knn_bound(query, part_pts, lengths, out_bytes, row_bytes=0):
+    """Bound of a KNN kernel on these inputs: 8 operations per (query, real
+    vertex) pair (3 sub, 3 mul, 2 add); the query, the real vertices (and
+    ``row_bytes`` more of each, the blend weights), the lengths read once
+    and ``out_bytes`` written once."""
+    C, (P, M) = query.shape[0], part_pts.shape[:2]
+    real = int(lengths.long().clamp(0, M).sum())
+    return bound(8 * C * real,
+                 C * 12 + real * (12 + row_bytes) + P * 4 + out_bytes)
+
+
+def exact_d2(q, verts):
+    """(dx^2 + dy^2) + dz^2 in float32, the kernels' and plain versions'
+    rounding."""
+    d = q - verts
+    return (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+
+
+def has_tie(query, part_pts, lengths, c, p):
+    """Whether query c's 4th and 5th nearest real vertices of part p are
+    exactly as far: then either may be the 4th neighbour."""
     import torch
-    got = knn.knn_blend(query, part_pts, part_pbw, lengths)
-    ref = knn.knn_blend_plain(query, part_pts, part_pbw, lengths)
-    torch.cuda.synchronize()
+    five = torch.sort(exact_d2(query[c], part_pts[p, :int(lengths[p])])).values[:5]
+    return len(five) == 5 and bool(five[3] == five[4])
+
+
+def blend_agree(name, got, ref, query, part_pts, lengths):
+    """Holds a (C, P, D + 1) blend against its reference; returns
+    (max_abs_err, note)."""
+    import torch
     if got.shape != ref.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                              f"{tuple(ref.shape)} or non-finite output")
@@ -88,19 +135,102 @@ def knn_case(name, query, part_pts, part_pbw, lengths, knn):
         torch.testing.assert_close(got[..., -1], ref[..., -1], rtol=1e-4, atol=1e-5)
         rows = bad.any(-1).nonzero()
         for c, p in rows.tolist():
-            d2 = ((query[c] - part_pts[p, :int(lengths[p])]) ** 2).sum(-1)
-            five = torch.sort(d2).values[:5]
-            if not (len(five) == 5 and five[3] == five[4]):
+            if not has_tie(query, part_pts, lengths, c, p):
                 torch.testing.assert_close(got[c, p], ref[c, p], rtol=1e-4,
                                            atol=1e-5)
         note = f"{len(rows)} rows differ only by exact distance ties"
+    return err, note
+
+
+def knn_case(name, inputs, knn):
+    """Kernel vs plain on one input; returns (max_abs_err, ms, plain_ms,
+    (bound_ms, bound_by))."""
+    import torch
+    query, part_pts, part_pbw, lengths = inputs
+    got = knn.knn_blend(query, part_pts, part_pbw, lengths)
+    ref = knn.knn_blend_plain(query, part_pts, part_pbw, lengths)
+    torch.cuda.synchronize()
+    err, note = blend_agree(name, got, ref, query, part_pts, lengths)
     ms = cuda_median_ms(lambda: knn.knn_blend(query, part_pts, part_pbw, lengths))
     plain_ms = cuda_median_ms(
         lambda: knn.knn_blend_plain(query, part_pts, part_pbw, lengths))
+    D = part_pbw.shape[2]
+    bnd = knn_bound(query, part_pts, lengths, got.numel() * 4, row_bytes=D * 4)
     phase("kernel", case=name, C=query.shape[0], lengths=lengths.tolist(),
           max_abs_err=f"{err:.3e}", tol="rtol=1e-4,atol=1e-5", check=note,
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return err, ms, plain_ms
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd[0]:.4f}",
+          bound_by=bnd[1])
+    return err, ms, plain_ms, bnd
+
+
+def sort_slots(d2, idx):
+    """(P, C, K) neighbour slots ordered by (d2, idx)."""
+    import torch
+    o = torch.argsort(idx, dim=-1, stable=True)
+    d2, idx = d2.gather(-1, o), idx.gather(-1, o)
+    o = torch.argsort(d2, dim=-1, stable=True)
+    return d2.gather(-1, o), idx.gather(-1, o)
+
+
+TOPK_TOL = ("real slots: d2 bit-equal, idx equal but at exact 4th/5th distance "
+            "ties; spare slots: d2>=1e9, 0<=idx<M")
+
+
+def topk_case(name, inputs, knn):
+    """``knn_topk`` vs ``knn_topk_plain``, then ``knn_blend_unfused`` vs
+    ``knn_blend``, on one input; returns (max_abs_err, ms, plain_ms,
+    (bound_ms, bound_by))."""
+    import torch
+    query, part_pts, part_pbw, lengths = inputs
+    C, (P, M) = query.shape[0], part_pts.shape[:2]
+    got = knn.knn_topk(query, part_pts, lengths)
+    ref = knn.knn_topk_plain(query, part_pts, lengths)
+    torch.cuda.synchronize()
+    for d2, idx in (got, ref):
+        if (d2.shape != (P, C, 4) or idx.shape != (P, C, 4)
+                or d2.dtype != torch.float32 or idx.dtype != torch.int32):
+            raise AssertionError(f"{name}: {d2.dtype} {tuple(d2.shape)}, "
+                                 f"{idx.dtype} {tuple(idx.shape)}")
+    (d2, idx), (rd2, ridx) = sort_slots(*got), sort_slots(*ref)
+    n_real = lengths.long().clamp(0, M).clamp(max=4)
+    real = (torch.arange(4, device=query.device) < n_real[:, None, None]).expand_as(d2)
+    for side, a, i in (("kernel", d2, idx), ("plain", rd2, ridx)):
+        spare_d2, spare_i = a[~real], i[~real]
+        if not ((spare_d2 >= 1e9).all() and (spare_i >= 0).all()
+                and (spare_i < M).all()):
+            raise AssertionError(f"{name}: {side} spare slots not (d2 >= 1e9, "
+                                 f"0 <= idx < {M})")
+    if not torch.equal(d2[real], rd2[real]):
+        raise AssertionError(f"{name}: real-slot d2 differ by up to "
+                             f"{(d2 - rd2)[real].abs().max().item():.3e}")
+    err = (d2 - rd2)[real].abs().max().item() if real.any() else 0.0
+    rows = ((idx != ridx) & real).any(-1).nonzero()           # (p, c) pairs
+    for p, c in rows.tolist():
+        if not has_tie(query, part_pts, lengths, c, p):
+            raise AssertionError(f"{name}: part {p} query {c}: kernel "
+                                 f"{idx[p, c].tolist()} plain {ridx[p, c].tolist()}")
+    note = f"{len(rows)} rows differ only by exact distance ties" if len(rows) \
+        else "exact-selection"
+    dist = torch.sqrt(torch.clamp(got[0], min=0.0))
+    ms = cuda_median_ms(lambda: knn.knn_topk(query, part_pts, lengths))
+    plain_ms = cuda_median_ms(lambda: knn.knn_topk_plain(query, part_pts, lengths))
+    agg_ms = cuda_median_ms(lambda: knn.aggregate(dist, got[1], part_pbw))
+    bnd = knn_bound(query, part_pts, lengths, P * C * 4 * 8)
+    phase("kernel", case=f"{name}-topk", C=C, lengths=lengths.tolist(),
+          max_abs_err=f"{err:.3e}", tol=repr(TOPK_TOL), check=note,
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", aggregate_ms=f"{agg_ms:.4f}",
+          bound_ms=f"{bnd[0]:.4f}", bound_by=bnd[1])
+    unfused = knn.knn_blend_unfused(query, part_pts, part_pbw, lengths)
+    fused = knn.knn_blend(query, part_pts, part_pbw, lengths)
+    torch.cuda.synchronize()
+    u_err, u_note = blend_agree(f"{name}-unfused", unfused, fused, query,
+                                part_pts, lengths)
+    u_ms = cuda_median_ms(
+        lambda: knn.knn_blend_unfused(query, part_pts, part_pbw, lengths))
+    phase("kernel", case=f"{name}-unfused-vs-fused", C=C,
+          max_abs_err=f"{u_err:.3e}", tol="rtol=1e-4,atol=1e-5", check=u_note,
+          unfused_ms=f"{u_ms:.4f}")
+    return err, ms, plain_ms, bnd
 
 
 SCATTER_TOL = ("|kernel-plain| <= 1 bf16 ulp of the row + n_row*2^-24*sum|payload| "
@@ -109,11 +239,15 @@ SCATTER_TOL = ("|kernel-plain| <= 1 bf16 ulp of the row + n_row*2^-24*sum|payloa
 
 def scatter_case(name, fn, plain, keys, payload, n_rows, level_offsets,
                  exact=False):
-    """Scatter kernel vs its plain version; returns (max_abs_err, ms, plain_ms).
+    """Scatter kernel vs its plain version; returns (max_abs_err, ms,
+    plain_ms, library_ms, (bound_ms, bound_by)).
     Both sum in f32 and round to bf16 once: a row may differ by one bf16 ulp
     plus the f32 reordering bound, which covers rows whose sum cancels.
     ``exact``: payloads whose sums are exact in f32 in any order, so the
-    two must agree bit for bit."""
+    two must agree bit for bit.  The library call is one f32
+    ``index_add_`` into a prepared zero table, its zero fill and casts
+    outside the timed region; the bound counts the keys and payload read
+    once and the bf16 table written once."""
     import torch
     got = fn(keys, payload, n_rows, level_offsets)
     ref = plain(keys, payload, n_rows, level_offsets)
@@ -143,12 +277,18 @@ def scatter_case(name, fn, plain, keys, payload, n_rows, level_offsets,
     err = diff.max().item()
     ms = cuda_median_ms(lambda: fn(keys, payload, n_rows, level_offsets))
     plain_ms = cuda_median_ms(lambda: plain(keys, payload, n_rows, level_offsets))
-    phase("kernel", case=name, R=keys.shape[0], F=F, n_rows=n_rows,
+    acc, pay32 = torch.zeros((n_rows, F), device=k.device), payload.float()
+    library_ms = cuda_median_ms(lambda: acc.index_add_(0, k, pay32))
+    R = keys.shape[0]
+    bnd = bound(R * F, R * 4 + R * F * 2 + n_rows * F * 2)
+    phase("kernel", case=name, R=R, F=F, n_rows=n_rows,
           levels=len(level_offsets) - 1, max_abs_err=f"{err:.3e}",
           rows_differing=int((diff > 0).any(-1).sum()),
           tol=repr("bit-exact" if exact else SCATTER_TOL),
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}")
-    return err, ms, plain_ms
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=f"{library_ms:.4f}", bound_ms=f"{bnd[0]:.5f}",
+          bound_by=bnd[1])
+    return err, ms, plain_ms, library_ms, bnd
 
 
 def level_keys(rng, level_offsets, per_level):
@@ -209,6 +349,7 @@ def scatter_cases(cfg, dev, rng):
 
 def reset_counts(knn, scatter):
     knn.knn_blend.launches = 0
+    knn.knn_topk.launches = 0
     scatter.segmented_scatter_add.launches = 0
     scatter.onehot_scatter_add.launches = 0
     scatter.exact_scatter_add.calls = 0
@@ -251,7 +392,7 @@ def profile_steps(trainer, gen):
 
 def train_slice(cfg, dev, knn, scatter):
     """Full-width MSE steps through train_net's functions; returns the
-    launch counts of the run."""
+    launch counts of the run and the scatter routes of one step."""
     import numpy as np
     import torch
     from instant_nvr_tpu_torch import train_net
@@ -307,7 +448,7 @@ def train_slice(cfg, dev, knn, scatter):
     phase("train-profile", steps=PROFILE_STEPS,
           device_busy=("not measured" if busy is None else f"{busy:.3f}"),
           top_kernels=repr(top_kernels), top_ops=repr(top_ops))
-    return counts
+    return counts, routes
 
 
 def _leaves(tree, prefix=""):
@@ -393,6 +534,36 @@ def card_vs_cpu_step(cfg, dev):
           tol=repr("loss rtol 1e-3; grads bf16-sized; params <= 2.1 lr"))
 
 
+def selfcheck(dev, knn, scatter, routes):
+    """Phase 7: ``cuda_selfcheck.run_checks`` at its full sizes; raises on
+    any failure or on a launch count other than its checks imply.  Returns
+    the launch counts of the run."""
+    from instant_nvr_tpu_torch.tools import cuda_selfcheck
+    reset_counts(knn, scatter)
+    checks = cuda_selfcheck.run_checks(dev)
+    got = {"knn_blend": knn.knn_blend.launches, "knn_topk": knn.knn_topk.launches,
+           "segmented_scatter_add": scatter.segmented_scatter_add.launches,
+           "onehot_scatter_add": scatter.onehot_scatter_add.launches}
+    for c in checks:
+        phase("selfcheck", check=c.tag, ok=c.ok, line=repr(c.line))
+    failures = [c.failure for c in checks if not c.ok]
+    if failures:
+        raise AssertionError(f"self-check failures: {failures}")
+    # [1]: one fused and one unfused KNN; [1b], [1c]: one scatter per width;
+    # [3]: 1 + 10 train steps
+    steps = 1 + cuda_selfcheck.FULL["train"]["steps"]
+    want = {"knn_blend": 1 + steps, "knn_topk": 1,
+            "segmented_scatter_add": 2 + steps * routes["segmented"],
+            "onehot_scatter_add": 2 + steps * routes["onehot"]}
+    if got != want or scatter.exact_scatter_add.calls:
+        raise AssertionError(f"self-check launches {got} != {want} (exact "
+                             f"index_add_ calls {scatter.exact_scatter_add.calls})")
+    train = [c for c in checks if c.tag == "[3]"][0].numbers
+    phase("selfcheck", checks=len(checks), failures=0, launches=repr(got),
+          train_ms_per_step=f"{train['ms_per_step']:.2f}")
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -422,6 +593,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build_libraries()
     knn.load_kernel()
+    knn.load_topk_kernel()
     scatter.load_segmented_kernel()
     scatter.load_onehot_kernel()
     for name in cuda_build.KERNELS:
@@ -441,20 +613,18 @@ def main() -> int:
     C = 65536
     q = scene["verts"][rng.integers(0, len(scene["verts"]), C)] \
         + rng.normal(scale=0.03, size=(C, 3))
-    errs, times = [], []
-    e, ms, pms = knn_case("inb_377-chunk", t(q.astype(np.float32)),
-                          t(scene["part_pts"]), t(scene["part_pbw"]),
-                          t(scene["lengths2"]), knn)
-    errs.append(e)
-    times.append((ms, pms))
+    chunk_case = (t(q.astype(np.float32)), t(scene["part_pts"]),
+                  t(scene["part_pbw"]), t(scene["lengths2"]))
     # ragged parts: empty and nearly empty parts, C not a multiple of 128
     lengths = np.array([2297, 4593, 0, 0, 17], np.int32)
     P, M, C2 = 5, 4593, C - 37
-    e, _, _ = knn_case(
-        "ragged", t(rng.normal(scale=0.3, size=(C2, 3)).astype(np.float32)),
-        t((0.3 * rng.normal(size=(P, M, 3))).astype(np.float32)),
-        t(rng.uniform(size=(P, M, 24)).astype(np.float32)), t(lengths), knn)
-    errs.append(e)
+    ragged_case = (t(rng.normal(scale=0.3, size=(C2, 3)).astype(np.float32)),
+                   t((0.3 * rng.normal(size=(P, M, 3))).astype(np.float32)),
+                   t(rng.uniform(size=(P, M, 24)).astype(np.float32)), t(lengths))
+    blend = [knn_case("inb_377-chunk", chunk_case, knn),
+             knn_case("ragged", ragged_case, knn)]
+    topk = [topk_case("inb_377-chunk", chunk_case, knn),
+            topk_case("ragged", ragged_case, knn)]
     scatter_res = scatter_cases(cfg, dev, rng)
 
     # 4. the render slice: full-width inb_377 through run --type render's
@@ -509,29 +679,35 @@ def main() -> int:
     del model, gpu, cpu
 
     # 5. the train slice: full-width inb_377 MSE steps
-    counts = train_slice(cfg, dev, knn, scatter)
+    counts, routes = train_slice(cfg, dev, knn, scatter)
     counts["knn_blend"] += launches
 
     # 6. one train step, card vs CPU
     card_vs_cpu_step(cfg, dev)
 
-    ms, pms = times[0]
-    rows = [{
-        "name": "knn_blend", "route": "cuda",
-        "source": "instant_nvr_tpu_torch/csrc/knn_blend.cu",
-        "replaces": "instant_nvr_tpu/ops/pallas/knn_pallas.py:111",
-        "launches": counts["knn_blend"], "max_abs_err": max(errs),
-        "ms": ms, "plain_ms": pms}]
+    # 7. the self-check entry point, in this process
+    counts = {k: counts.get(k, 0) + v
+              for k, v in selfcheck(dev, knn, scatter, routes).items()}
+
+    def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"instant_nvr_tpu_torch/csrc/{source}",
+                "replaces": f"instant_nvr_tpu/ops/pallas/{replaces}",
+                "launches": counts[name], "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "bounded_by": bnd[1], "library_ms": library_ms}
+    # no single PyTorch call computes a per-part 4-NN over ragged lengths:
+    # the two KNN rows have no library time
+    rows = [row("knn_blend", "knn_blend.cu", "knn_pallas.py:111",
+                max(b[0] for b in blend), *blend[0][1:]),
+            row("knn_topk", "knn_topk.cu", "knn_pallas.py:36",
+                max(b[0] for b in topk), *topk[0][1:])]
     for name, src, replaces in (
             ("segmented_scatter_add", "segmented_scatter.cu",
-             "instant_nvr_tpu/ops/pallas/segmented_scatter.py:156"),
-            ("onehot_scatter_add", "onehot_scatter.cu",
-             "instant_nvr_tpu/ops/pallas/onehot_scatter.py:77")):
-        err, ms, pms = scatter_res[name]
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"instant_nvr_tpu_torch/csrc/{src}",
-                     "replaces": replaces, "launches": counts[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": pms})
+             "segmented_scatter.py:156"),
+            ("onehot_scatter_add", "onehot_scatter.cu", "onehot_scatter.py:77")):
+        err, ms, pms, lib_ms, bnd = scatter_res[name]
+        rows.append(row(name, src, replaces, err, ms, pms, bnd, lib_ms))
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -12,21 +12,14 @@
 // Empty parts give a zero blend and 1e6.  The layout is (C, P, D+1), what
 // the model consumes, so no transpose follows.
 //
-// Design.  One thread per (query, part), one block per (128-query tile,
-// part): grid (ceil(C/128), P).  The block streams its part's vertices, and
-// only the real ones, through shared memory in tiles of 1024 (x, y, z, pad)
-// float4s (16 KB); every thread reads the same vertex at once (a broadcast,
-// no bank conflicts) and keeps its best 4 (d^2, index) sorted in registers.
-// A new vertex enters only if strictly nearer than the current 4th, so on
-// exact ties the earlier vertex wins, as `take = m < worst` does on the TPU.
-// d^2 is (dx^2 + dy^2) + dz^2 with round-to-nearest intrinsics, the same
-// rounding as the plain PyTorch version (no fused multiply-add; the file is
-// built with --fmad=false so the epilogue does not fuse either), not the
-// |q|^2 + |v|^2 - 2 q.v form whose cancellation flips neighbours.  The 4
-// selected blend-weight rows are read in float32 straight from global
-// memory (L2-resident: a part's table is ~130 KB).  The TPU kernel split
-// them into bf16 hi+lo halves only because its matrix unit truncates f32;
-// nothing here is bf16.
+// Design.  Pass 1 (knn_select.cuh, shared with knn_topk.cu): one thread per
+// (query, part), one block per (128-query tile, part), grid (ceil(C/128),
+// P); the part's real vertices stream through shared memory and each thread
+// keeps its best 4 sorted in registers, by the plain version's exact f32
+// d^2.  The 4 selected blend-weight rows are read in float32 straight from
+// global memory (L2-resident: a part's table is ~130 KB).  The TPU kernel
+// split them into bf16 hi+lo halves only because its matrix unit truncates
+// f32; nothing here is bf16.
 //
 // What bounds it: compute.  About 8 flops per (query, vertex) pair, so
 // C * sum(lengths) * 8 ~ 3.6 GFLOP per render chunk at 65,536 queries and
@@ -36,12 +29,13 @@
 // coalesced output stores.
 #include <cuda_runtime.h>
 
+#include "knn_select.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;   // queries per block
-constexpr int kTile = 1024;     // vertices per shared-memory tile
-constexpr int kK = 4;           // neighbours
-constexpr float kFarInit = 1.5e9f;  // "no neighbour": exp(-1.5e9 / 2r^2) == 0
+using knn_select::kK;
+using knn_select::kThreads;
+using knn_select::kTile;
 
 __global__ void __launch_bounds__(kThreads)
 knn_blend_kernel(const float* __restrict__ query,     // (C, 3)
@@ -62,53 +56,10 @@ knn_blend_kernel(const float* __restrict__ query,     // (C, 3)
     qy = query[3 * c + 1];
     qz = query[3 * c + 2];
   }
-  const int len = max(0, min(lengths[p], M));
-  const float* verts = part_pts + (size_t)p * M * 3;
-
   float bd[kK];
   int bi[kK];
-#pragma unroll
-  for (int k = 0; k < kK; ++k) {
-    bd[k] = kFarInit;
-    bi[k] = -1;
-  }
-
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int n = min(kTile, len - t0);
-    __syncthreads();  // the previous tile is no longer read
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const float* v = verts + (size_t)(t0 + j) * 3;
-      tile[j] = make_float4(v[0], v[1], v[2], 0.f);
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float4 v = tile[j];
-      const float dx = __fsub_rn(qx, v.x);
-      const float dy = __fsub_rn(qy, v.y);
-      const float dz = __fsub_rn(qz, v.z);
-      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      if (d2 < bd[kK - 1]) {
-        // sorted insertion: the new vertex goes before the first strictly
-        // larger entry; everything after it shifts down one slot
-        float cd = d2;
-        int ci = t0 + j;
-        bool shifting = false;
-#pragma unroll
-        for (int k = 0; k < kK; ++k) {
-          if (shifting || cd < bd[k]) {
-            const float td = bd[k];
-            const int ti = bi[k];
-            bd[k] = cd;
-            bi[k] = ci;
-            cd = td;
-            ci = ti;
-            shifting = true;
-          }
-        }
-      }
-    }
-  }
+  knn_select::best_k(part_pts + (size_t)p * M * 3, max(0, min(lengths[p], M)),
+                     qx, qy, qz, tile, bd, bi);
   if (!live) return;
 
   // gaussian weights: the elementwise math of knn_pallas.py:132-138

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` of :data:`KERNELS` has a plain C interface.  At
 first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/torch_kernels/`` at the root of the checkout, named by
-a hash of its source and flags, and loaded with ``ctypes``.  Nothing
-includes PyTorch's headers, so a build takes seconds, not minutes.
+a hash of its source, the headers of ``csrc/`` and its flags, and loaded
+with ``ctypes``.  Nothing includes PyTorch's headers, so a build takes
+seconds, not minutes.
 :func:`build_libraries` compiles several sources at once, one ``nvcc``
 each.  A failed build raises: there is no fallback.
 """
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS: Dict[str, Tuple[str, ...]] = {
     # the distances must round like the plain version: no fused multiply-add
     "knn_blend": ("--fmad=false",),
+    "knn_topk": ("--fmad=false",),
     "segmented_scatter": (),
     "onehot_scatter": (),
 }
@@ -49,8 +51,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    # the headers a source may include (knn_select.cuh) change the build too
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + KERNELS[name]).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
