@@ -13,7 +13,11 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      one, and the kernel's bound (the larger of its float32 operations over
      67 TFLOP/s and its bytes over 3.35 TB/s: the H100 SXM's published
      peaks); ``knn_blend_unfused`` (``knn_topk`` + ``aggregate``) against
-     ``knn_blend``.
+     ``knn_blend``.  The scatters also run on the records of one train
+     step, a hot coarse level (bit-exact), keys outside the table and the
+     self-check's [1c] shape, with the profiler's kernel time per call
+     beside the event time, and the scatter workspace must be all zero
+     after every case (and after phases 5 and 7).
   4. render slice: full 512x512 synthetic frames of the full-width inb_377
      model (random weights from a seed) through the functions of
      ``python -m instant_nvr_tpu_torch.run --type render``; checks the
@@ -34,7 +38,10 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      on any failure and checks every kernel's launch count, ``knn_topk``'s
      included.
 Then one JSON line of kernel numbers (launches: the render, train and
-self-check phases together), the ``nvidia-smi`` name/power line, and last
+self-check phases together; a scatter row's times are its first case,
+uniform keys at the main path's shape, with its train-step case beside them
+as ``train_records_*``),
+the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import copy
@@ -237,32 +244,87 @@ SCATTER_TOL = ("|kernel-plain| <= 1 bf16 ulp of the row + n_row*2^-24*sum|payloa
                "(f32 sums in another order)")
 
 
+def device_ms_by_kernel(fn, n=N_TIMED):
+    """Device time per call of ``fn`` by CUDA kernel name: what
+    torch.profiler records over ``n`` calls; empty when the trace holds no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            t = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if t is None else t
+            if us > 0:
+                out[e.key] = out.get(e.key, 0.0) + us / n / 1000
+    return out
+
+
+def device_ms(fn, n=N_TIMED):
+    """Device time per call of ``fn`` (all its CUDA kernels), or None when
+    the trace holds no device time."""
+    by_kernel = device_ms_by_kernel(fn, n)
+    return sum(by_kernel.values()) if by_kernel else None
+
+
+def kernel_name(key):
+    """A profiler kernel name without namespace, template and arguments."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    return (name.split("::")[-1].split() or [key])[-1]
+
+
+def assert_workspace_zero(where):
+    from instant_nvr_tpu_torch.ops import scatter
+    nz = scatter.workspace_nonzero()
+    if nz:
+        raise AssertionError(f"{where}: the scatter workspace holds {nz} nonzero words")
+
+
 def scatter_case(name, fn, plain, keys, payload, n_rows, level_offsets,
                  exact=False):
     """Scatter kernel vs its plain version; returns (max_abs_err, ms,
-    plain_ms, library_ms, (bound_ms, bound_by)).
+    plain_ms, library_ms, (bound_ms, bound_by), device_ms,
+    library_device_ms).
     Both sum in f32 and round to bf16 once: a row may differ by one bf16 ulp
     plus the f32 reordering bound, which covers rows whose sum cancels.
     ``exact``: payloads whose sums are exact in f32 in any order, so the
-    two must agree bit for bit.  The library call is one f32
-    ``index_add_`` into a prepared zero table, its zero fill and casts
-    outside the timed region; the bound counts the keys and payload read
-    once and the bf16 table written once."""
+    two must agree bit for bit.  Keys outside the table are dropped by the
+    kernel; the plain version (``index_add_``) gets only the others.  The
+    library call is one f32 ``index_add_`` into a prepared zero table, its
+    zero fill and casts outside the timed region (``library_full_ms``, for
+    information: with them); the bound counts the keys and payload read
+    once and the bf16 table written once.  ``ms`` and ``library_ms`` are
+    CUDA events around the call (host enqueue included), ``device_ms`` and
+    ``library_device_ms`` the profiler's kernel time per call
+    (``device_split``: the kernel's by CUDA kernel).  The workspace must be
+    all zero after the case."""
     import torch
     got = fn(keys, payload, n_rows, level_offsets)
-    ref = plain(keys, payload, n_rows, level_offsets)
+    keep = (keys >= 0) & (keys < n_rows)
+    n_dropped = int((~keep).sum())
+    rk, rp = (keys, payload) if not n_dropped else (keys[keep].contiguous(),
+                                                    payload[keep].contiguous())
+    ref = plain(rk, rp, n_rows, level_offsets)
     torch.cuda.synchronize()
+    assert_workspace_zero(name)
     F = payload.shape[1]
     if got.shape != (n_rows, F) or got.dtype != torch.bfloat16:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
     g, r = got.float(), ref.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite output")
-    k = keys.long()
+    k = rk.long()
     count = torch.zeros(n_rows, device=k.device).index_add_(
         0, k, torch.ones_like(k, dtype=torch.float32))
     mass = torch.zeros((n_rows, F), device=k.device).index_add_(
-        0, k, payload.float().abs())
+        0, k, rp.float().abs())
     top = torch.maximum(g.abs(), r.abs())
     _, e = torch.frexp(top)                    # top = m * 2^e, m in [0.5, 1)
     ulp = torch.ldexp(torch.ones_like(g), e - 8) * (top > 0)
@@ -275,20 +337,33 @@ def scatter_case(name, fn, plain, keys, payload, n_rows, level_offsets,
         raise AssertionError(f"{name}: {int(bad.sum())} entries out of tolerance; "
                              f"row {i}: kernel {g[i].tolist()} plain {r[i].tolist()}")
     err = diff.max().item()
-    ms = cuda_median_ms(lambda: fn(keys, payload, n_rows, level_offsets))
-    plain_ms = cuda_median_ms(lambda: plain(keys, payload, n_rows, level_offsets))
-    acc, pay32 = torch.zeros((n_rows, F), device=k.device), payload.float()
+    call = lambda: fn(keys, payload, n_rows, level_offsets)
+    ms = cuda_median_ms(call)
+    split = device_ms_by_kernel(call)
+    dev_ms = sum(split.values()) if split else None
+    plain_ms = cuda_median_ms(lambda: plain(rk, rp, n_rows, level_offsets))
+    acc, pay32 = torch.zeros((n_rows, F), device=k.device), rp.float()
     library_ms = cuda_median_ms(lambda: acc.index_add_(0, k, pay32))
+    library_dev_ms = device_ms(lambda: acc.index_add_(0, k, pay32))
+    library_full_ms = cuda_median_ms(lambda: torch.zeros(
+        (n_rows, F), device=k.device).index_add_(0, k, pay32).to(torch.bfloat16))
+    assert_workspace_zero(name)
     R = keys.shape[0]
     bnd = bound(R * F, R * 4 + R * F * 2 + n_rows * F * 2)
     phase("kernel", case=name, R=R, F=F, n_rows=n_rows,
-          levels=len(level_offsets) - 1, max_abs_err=f"{err:.3e}",
+          levels=len(level_offsets) - 1, distinct_keys=int(torch.unique(k).numel()),
+          dropped=n_dropped, max_abs_err=f"{err:.3e}",
           rows_differing=int((diff > 0).any(-1).sum()),
           tol=repr("bit-exact" if exact else SCATTER_TOL),
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          library_ms=f"{library_ms:.4f}", bound_ms=f"{bnd[0]:.5f}",
-          bound_by=bnd[1])
-    return err, ms, plain_ms, library_ms, bnd
+          ms=f"{ms:.4f}",
+          device_ms="not measured" if dev_ms is None else f"{dev_ms:.4f}",
+          device_split=repr({kernel_name(k): round(v, 4) for k, v in split.items()}),
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+          library_device_ms=("not measured" if library_dev_ms is None
+                             else f"{library_dev_ms:.4f}"),
+          library_full_ms=f"{library_full_ms:.4f}", bound_ms=f"{bnd[0]:.5f}",
+          bound_by=bnd[1], workspace="zero")
+    return err, ms, plain_ms, library_ms, bnd, dev_ms, library_dev_ms
 
 
 def level_keys(rng, level_offsets, per_level):
@@ -298,9 +373,39 @@ def level_keys(rng, level_offsets, per_level):
                            zip(level_offsets[:-1], level_offsets[1:])]).astype(np.int32)
 
 
+def capture_train_records(cfg, dev):
+    """Every table-gradient scatter call of one train-smoke step (a fresh
+    trainer from seed 0, its first step): [(route, keys, payload, n_rows,
+    level_offsets)], as the kernels received them."""
+    import torch
+    from instant_nvr_tpu_torch import train_net
+    from instant_nvr_tpu_torch.ops import hashgrid as hg
+    trainer = train_net.build_trainer(cfg, dev, seed=0)
+    calls, kernels = [], dict(hg._SCATTER)
+
+    def spy(route):
+        def call(keys, payload, n_rows, level_offsets):
+            calls.append((route, keys.clone(), payload.clone(), n_rows,
+                          tuple(level_offsets)))
+            return kernels[route](keys, payload, n_rows, level_offsets)
+        return call
+    hg._SCATTER.update({route: spy(route) for route in kernels})
+    try:
+        trainer.step(trainer.state, trainer.batch,
+                     generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+    finally:
+        hg._SCATTER.update(kernels)
+    return calls
+
+
 def scatter_cases(cfg, dev, rng):
     """Both scatter kernels against their plain versions at the train path's
-    shapes: {kernel: (max_abs_err, ms, plain_ms) of its first case}."""
+    shapes, on the train step's own records, on a hot coarse level, with
+    keys outside the table, and at the self-check's [1c] shape:
+    {kernel: (max_abs_err over its cases, then ms, plain_ms, library_ms,
+    bound, device_ms, library_device_ms of its first case (uniform keys),
+    then the whole result of its train-step case)}."""
     import numpy as np
     import torch
     from instant_nvr_tpu_torch.models import inb
@@ -312,18 +417,32 @@ def scatter_cases(cfg, dev, rng):
     mspec = inb.build_model_spec(cfg)
     body = mspec.part_embeds[mspec.partnames.index("body")]
     arm = mspec.part_embeds[mspec.partnames.index("larm")]
-    out, errs = {}, {"segmented_scatter_add": [], "onehot_scatter_add": []}
+    out, records = {}, {}
+    errs = {"segmented_scatter_add": [], "onehot_scatter_add": []}
 
-    def run(kernel, name, fns, keys, payload, n_rows, offs, exact=False):
-        res = scatter_case(name, *fns, t(keys), payload, n_rows, offs, exact)
+    def run(kernel, name, fns, keys, payload, n_rows, offs, exact=False,
+            train_records=False):
+        keys = keys if torch.is_tensor(keys) else t(keys)
+        res = scatter_case(name, *fns, keys, payload, n_rows, offs, exact)
         errs[kernel].append(res[0])
         out.setdefault(kernel, res)
+        if train_records:
+            records.setdefault(kernel, res)
+
+    def out_of_range(keys, n_rows):
+        """10% of the keys moved outside [0, n_rows), both sides and the
+        int32 extremes."""
+        keys = keys.copy()
+        bad = rng.random(len(keys)) < 0.1
+        keys[bad] = rng.choice(np.array([-(2 ** 31), -7, -1, n_rows, n_rows + 5,
+                                         2 ** 31 - 1], np.int64), int(bad.sum()))
+        return keys
 
     # body hash table: 10 levels x 8 corners x 8,192 points
-    _, rows, offs = body.tables()[-1]
-    R = (len(offs) - 1) * 8 * 8192
-    run("segmented_scatter_add", "body-hash", seg, level_keys(rng, offs, 8 * 8192),
-        bf(rng.normal(size=(R, 1))), rows, offs)
+    _, body_rows, body_offs = body.tables()[-1]
+    R = (len(body_offs) - 1) * 8 * 8192
+    run("segmented_scatter_add", "body-hash", seg, level_keys(rng, body_offs, 8 * 8192),
+        bf(rng.normal(size=(R, 1))), body_rows, body_offs)
     # pileup: every record on one key of level 2 (levels 0, 1, 3 empty),
     # R not a multiple of 128; small-integer payloads sum exactly
     R = 100003
@@ -335,16 +454,53 @@ def scatter_cases(cfg, dev, rng):
     run("segmented_scatter_add", "F2", seg, level_keys(rng, offs2, R // 4),
         bf(rng.normal(size=(R, 2))), offs2[-1], offs2)
     # deformer hash table: 2 levels x 8 corners x 22,528 points, per column
-    _, rows, offs = mspec.deformer.embed.tables()[-1]
-    R = (len(offs) - 1) * 8 * 22528
-    run("onehot_scatter_add", "deformer-hash", one, level_keys(rng, offs, 8 * 22528),
-        bf(rng.normal(size=(R, 1))), rows, offs)
+    _, def_rows, def_offs = mspec.deformer.embed.tables()[-1]
+    R = (len(def_offs) - 1) * 8 * 22528
+    run("onehot_scatter_add", "deformer-hash", one, level_keys(rng, def_offs, 8 * 22528),
+        bf(rng.normal(size=(R, 1))), def_rows, def_offs)
     # arm dense table: 9 levels x 8 corners x 2,048 points
     _, rows, offs = arm.tables()[0]
     R = (len(offs) - 1) * 8 * 2048
     run("onehot_scatter_add", "arm-dense", one, level_keys(rng, offs, 8 * 2048),
         bf(rng.normal(size=(R, 1))), rows, offs)
-    return {k: (max(errs[k]),) + v[1:] for k, v in out.items()}
+    # the train step's own records (duplicate keys as the main path has
+    # them), each table's largest call; the kernels line gives the first of
+    # each kernel beside its uniform-keys row
+    calls = capture_train_records(cfg, dev)
+    phase("kernel", train_step_calls=repr([(r, int(k.shape[0]), n, len(o) - 1)
+                                           for r, k, p, n, o in calls]))
+    _, arm_rows, arm_offs = arm.tables()[0]
+    for kernel, name, fns, route, rows, offs in (
+            ("segmented_scatter_add", "body-hash-real", seg, "segmented", body_rows,
+             body_offs),
+            ("onehot_scatter_add", "deformer-hash-real", one, "onehot", def_rows,
+             def_offs),
+            ("onehot_scatter_add", "arm-dense-real", one, "onehot", arm_rows,
+             arm_offs)):
+        keys, payload = max(((k, p) for r, k, p, n, o in calls
+                             if r == route and n == rows and o == tuple(offs)),
+                            key=lambda kp: kp[0].shape[0])
+        run(kernel, name, fns, keys, payload, rows, offs, train_records=True)
+    del calls
+    # a hot coarse level: 8 rows take 131,072 records (small integers:
+    # exact), beside a full-size level
+    for kernel, fns in (("segmented_scatter_add", seg), ("onehot_scatter_add", one)):
+        hot = (0, 8, 8 + 16411)
+        run(kernel, "hot-row", fns, level_keys(rng, hot, 131072),
+            bf(rng.integers(-8, 9, size=(2 * 131072, 1))), hot[-1], hot, exact=True)
+    # keys outside the table are dropped
+    R = (len(def_offs) - 1) * 8 * 22528
+    for kernel, fns in (("segmented_scatter_add", seg), ("onehot_scatter_add", one)):
+        run(kernel, "out-of-range", fns,
+            out_of_range(level_keys(rng, def_offs, 8 * 22528), def_rows),
+            bf(rng.normal(size=(R, 1))), def_rows, def_offs)
+    # the self-check's [1c]: one 12,276-row level of 1,081,344 records, at
+    # F = 2 and 1 (several clusters per level)
+    for F in (2, 1):
+        run("onehot_scatter_add", f"selfcheck-1c-F{F}", one,
+            level_keys(rng, (0, 12276), 1081344),
+            bf(rng.normal(size=(1081344, F))), 12276, (0, 12276))
+    return {k: (max(errs[k]),) + v[1:] + (records[k],) for k, v in out.items()}
 
 
 def reset_counts(knn, scatter):
@@ -681,6 +837,7 @@ def main() -> int:
     # 5. the train slice: full-width inb_377 MSE steps
     counts, routes = train_slice(cfg, dev, knn, scatter)
     counts["knn_blend"] += launches
+    assert_workspace_zero("train slice")
 
     # 6. one train step, card vs CPU
     card_vs_cpu_step(cfg, dev)
@@ -688,6 +845,7 @@ def main() -> int:
     # 7. the self-check entry point, in this process
     counts = {k: counts.get(k, 0) + v
               for k, v in selfcheck(dev, knn, scatter, routes).items()}
+    assert_workspace_zero("self-check")
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -706,8 +864,13 @@ def main() -> int:
             ("segmented_scatter_add", "segmented_scatter.cu",
              "segmented_scatter.py:156"),
             ("onehot_scatter_add", "onehot_scatter.cu", "onehot_scatter.py:77")):
-        err, ms, pms, lib_ms, bnd = scatter_res[name]
-        rows.append(row(name, src, replaces, err, ms, pms, bnd, lib_ms))
+        err, ms, pms, lib_ms, bnd, dev_ms, lib_dev_ms, rec = scatter_res[name]
+        r = row(name, src, replaces, err, ms, pms, bnd, lib_ms)
+        r.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+                 train_records_ms=rec[1], train_records_device_ms=rec[5],
+                 train_records_plain_ms=rec[2], train_records_library_ms=rec[3],
+                 train_records_library_device_ms=rec[6])
+        rows.append(r)
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

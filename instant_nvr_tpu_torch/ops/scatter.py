@@ -6,19 +6,34 @@ Both compute the dense gradient of a table from R scatter records:
 
     grad[keys[r], f] += payload[r, f]      keys (R,) int32, payload (R, F) bf16
 
-summed in float32 and returned as (n_rows, F) bf16.  Records are
-level-major: ``level_offsets`` (n_levels + 1 ascending row starts, the last
-one the level end) give each level's row window, and level l's R / n_levels
-records fall inside window l.  F is a power of two <= 128.
+summed in float32, rounded to bf16 once and returned as (n_rows, F) bf16;
+keys outside [0, n_rows) are dropped.  Records are level-major:
+``level_offsets`` (n_levels + 1 ascending row starts, the last one the
+level end) give each level's row window, and level l's R / n_levels records
+fall inside window l.  F is a power of two <= 128.
 
 * ``segmented_scatter_add`` (any table size) launches ``csrc/segmented_scatter.cu``:
-  record-parallel float32 atomics into a zeroed workspace, then a bf16 cast.
-  It needs no level windows; it takes them so both kernels share one
-  signature.
+  one pass zeroes the output and adds every record into the float32
+  workspace with atomics, a second swaps each touched workspace entry for
+  0 and writes it to the output as bf16.  It needs no level windows; it
+  takes them so both kernels share one signature.
 * ``onehot_scatter_add`` (small tables) launches ``csrc/onehot_scatter.cu``:
-  one block per (level, record chunk) accumulates into its level's row
-  window in shared memory, then flushes into the workspace.  The widest
-  window must fit the block's shared memory (:func:`onehot_fits`).
+  a thread block cluster per level (several when the level has many
+  records; :func:`onehot_plan`) sums the level's row window in shared
+  memory and reduces it across the cluster's blocks through distributed
+  shared memory; several clusters of a level meet in the workspace.  The widest window must fit a block's shared memory
+  (:func:`onehot_fits`).  A record whose key lies inside the table but
+  outside its level's window is outside the contract: the kernel drops it,
+  as the TPU kernel does, where the plain version adds it.
+
+Each wrapper call is one call into its library, which enqueues all of its
+work: no zero fill of a workspace and no cast pass over the table.  Both
+kernels share one persistent float32 workspace per (device, stream)
+(:func:`workspace`), all zero between calls: the segmented kernel's
+accumulator and, with several clusters per level, the one-hot kernel's
+(its window sums, then one ticket word per level behind the table).
+It is as large as the largest table x F the stream has seen (42 MB for the
+flagship's body hash table) and never shrinks.
 
 On a CPU tensor each wrapper runs its ``*_plain`` version (a float32
 ``index_add_`` into zeros, cast to bf16: the contract of
@@ -31,15 +46,21 @@ float32``); it counts its calls in ``.calls``.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 # shared memory a block may opt into on Hopper (sm_90: 227 KB); the one-hot
 # kernel's accumulator holds the widest level window x F in float32
 ONEHOT_SMEM_BYTES = 232448
-_MAX_LEVELS = 64        # kMaxLevels in onehot_scatter.cu
-_TARGET_BLOCKS = 264    # one-hot blocks to aim for: two per SM of an H100
+_MAX_LEVELS = 64          # kMaxLevels in onehot_scatter.cu
+CLUSTER_MAX = 8           # the portable thread block cluster size (kMaxCluster)
+# (record, feature) elements a one-hot block aims for: its float32 shared
+# atomics are compare-and-swap loops on sm_90, so records are spread over
+# as many SMs as the card has before a block takes more
+BLOCK_ELEMS = 4096
+_TICKETS = _MAX_LEVELS    # the one-hot kernel's ticket words behind the table
 
 
 def _scatter_plain(keys: torch.Tensor, payload: torch.Tensor,
@@ -122,30 +143,61 @@ def _check_args(name: str, keys, payload, n_rows: int, level_offsets=None):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # several microseconds per call
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def workspace(device: torch.device, n: int, stream: int = 0) -> torch.Tensor:
+    """The float32 workspace of (device, stream), at least ``n`` floats.
+    Allocated with ``torch.zeros`` at first use and replaced by a larger
+    zeroed one only when a call needs more; it never shrinks.  The kernels
+    leave it all zero when their work ends."""
+    key = (torch.device(device), stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(n, dtype=torch.float32, device=device)
+        _workspaces[key] = ws
+    return ws
+
+
+def workspace_nonzero() -> int:
+    """Nonzero words over every workspace (0 between calls); synchronises."""
+    return sum(int(torch.count_nonzero(ws.view(torch.int32)))
+               for ws in _workspaces.values())
+
+
+_launch = {}
 
 
 def load_segmented_kernel():
     """Build (if needed) and load ``csrc/segmented_scatter.cu`` -> its launch
     function.  Raises if the build fails."""
-    from ..cuda_build import load_library
-    fn = load_library("segmented_scatter").segmented_scatter_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                                ctypes.c_int, ctypes.c_void_p])
+    fn = _launch.get("segmented")
+    if fn is None:
+        from ..cuda_build import load_library
+        fn = load_library("segmented_scatter").segmented_scatter_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        _launch["segmented"] = fn
     return fn
 
 
 def load_onehot_kernel():
     """Build (if needed) and load ``csrc/onehot_scatter.cu`` -> its launch
     function.  Raises if the build fails."""
-    from ..cuda_build import load_library
-    fn = load_library("onehot_scatter").onehot_scatter_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn = _launch.get("onehot")
+    if fn is None:
+        from ..cuda_build import load_library
+        fn = load_library("onehot_scatter").onehot_scatter_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        _launch["onehot"] = fn
     return fn
 
 
@@ -159,13 +211,12 @@ def segmented_scatter_add(keys: torch.Tensor, payload: torch.Tensor,
         raise ValueError(f"segmented_scatter_add runs on cpu or cuda, not {keys.device}")
     _check_args("segmented_scatter_add", keys, payload, n_rows)
     R, F = payload.shape
-    acc = torch.zeros((n_rows, F), dtype=torch.float32, device=keys.device)
+    stream = _stream(keys)
+    ws = workspace(keys.device, n_rows * F, stream)
     out = torch.empty((n_rows, F), dtype=torch.bfloat16, device=keys.device)
-    launch = load_segmented_kernel()
-    with torch.cuda.device(keys.device):
-        err = launch(keys.data_ptr(), payload.data_ptr(), acc.data_ptr(),
-                     out.data_ptr(), R, F.bit_length() - 1, n_rows,
-                     _stream(keys))
+    err = load_segmented_kernel()(keys.data_ptr(), payload.data_ptr(), ws.data_ptr(),
+                                  out.data_ptr(), R, F.bit_length() - 1, n_rows,
+                                  keys.device.index, stream)
     if err != 0:
         raise RuntimeError(f"segmented_scatter_add launch failed: cudaError {err}")
     segmented_scatter_add.launches += 1
@@ -175,12 +226,45 @@ def segmented_scatter_add(keys: torch.Tensor, payload: torch.Tensor,
 segmented_scatter_add.launches = 0
 
 
-def onehot_chunk(level_offsets: Sequence[int], R: int) -> int:
-    """Records per block: enough blocks to spread over the card, but never
-    fewer records than the window a block zeroes and flushes."""
+def onehot_plan(level_offsets: Sequence[int], R: int, F: int,
+                n_sm: int) -> Tuple[int, int, int]:
+    """(clusters_per_level, cluster_size, smem_bytes) of the one-hot kernel.
+
+    A level's blocks take about BLOCK_ELEMS (record, feature) elements each.
+    A level that needs at most CLUSTER_MAX blocks takes one cluster of that
+    many, which writes the window's bf16 sums itself; a bigger one takes
+    clusters of CLUSTER_MAX, as many as fill the card's ``n_sm`` SMs once
+    over all levels (at least one), which meet in the workspace.  Each block
+    holds the widest window x F floats.  Raises where :func:`onehot_fits`
+    does not hold."""
+    _check_onehot(level_offsets, F)
     L = len(level_offsets) - 1
-    per_level = -(-_TARGET_BLOCKS // L)
-    return max(_window_rows(level_offsets), -(-(R // L) // per_level), 1)
+    n = R // L * F
+    smem = max(_window_rows(level_offsets) * F * 4, 4)     # >= the flag word
+    blocks = max(1, -(-n // BLOCK_ELEMS))
+    if blocks <= CLUSTER_MAX:
+        return 1, blocks, smem
+    return (min(-(-blocks // CLUSTER_MAX), max(1, n_sm // (CLUSTER_MAX * L))),
+            CLUSTER_MAX, smem)
+
+
+_sm_count: Dict[int, int] = {}
+
+
+def _device_sms(device: torch.device) -> int:
+    n = _sm_count.get(device.index)
+    if n is None:
+        n = _sm_count[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+@functools.lru_cache(maxsize=256)
+def _onehot_launch_args(level_offsets: Tuple[int, ...], R: int, F: int,
+                        n_sm: int):
+    """The plan and the C array of row starts, once per distinct call shape."""
+    return (onehot_plan(level_offsets, R, F, n_sm),
+            (ctypes.c_int * len(level_offsets))(*level_offsets))
 
 
 def onehot_scatter_add(keys: torch.Tensor, payload: torch.Tensor,
@@ -194,18 +278,21 @@ def onehot_scatter_add(keys: torch.Tensor, payload: torch.Tensor,
     level_offsets = tuple(int(o) for o in level_offsets)
     _check_args("onehot_scatter_add", keys, payload, n_rows, level_offsets)
     R, F = payload.shape
-    _check_onehot(level_offsets, F)
     if R >= 2 ** 31:
         raise ValueError(f"onehot_scatter_add: R={R} records exceed int32")
-    acc = torch.zeros((n_rows, F), dtype=torch.float32, device=keys.device)
+    (clusters, cluster_size, smem), offs = _onehot_launch_args(
+        level_offsets, R, F, _device_sms(keys.device))
+    stream = _stream(keys)
+    ws = (workspace(keys.device, n_rows * F + _TICKETS, stream).data_ptr()
+          if clusters > 1 else None)
     out = torch.empty((n_rows, F), dtype=torch.bfloat16, device=keys.device)
-    offs = (ctypes.c_int * len(level_offsets))(*level_offsets)
-    launch = load_onehot_kernel()
-    with torch.cuda.device(keys.device):
-        err = launch(keys.data_ptr(), payload.data_ptr(), acc.data_ptr(),
-                     out.data_ptr(), offs, len(level_offsets) - 1, R,
-                     F.bit_length() - 1, n_rows, onehot_chunk(level_offsets, R),
-                     _window_rows(level_offsets), _stream(keys))
+    err = load_onehot_kernel()(keys.data_ptr(), payload.data_ptr(), ws, out.data_ptr(),
+                               offs, len(level_offsets) - 1, R, F.bit_length() - 1,
+                               n_rows, clusters, cluster_size, smem,
+                               keys.device.index, stream)
+    if err == -1:
+        raise RuntimeError(f"onehot_scatter_add: no cluster of {cluster_size} blocks "
+                           f"with {smem} B of shared memory each fits the card")
     if err != 0:
         raise RuntimeError(f"onehot_scatter_add launch failed: cudaError {err}")
     onehot_scatter_add.launches += 1

@@ -12,14 +12,20 @@ and its XLA path.  Tolerances:
     slots differ by design (JAX: masked padded columns, d2 1e9, idx up to
     its padded M; the port: d2 1.5e9, idx 0): both have d2 >= 1e9.
   * aggregate on JAX's own (d, idx): rtol 1e-6 / atol 1e-7 (the same
-    elementwise float32 math; exp may differ by an ulp).
+    elementwise float32 math; exp may differ by an ulp).  That holds for
+    torch's first parallel exp in a process only because importing the port
+    picks MKL's kernels first (``instant_nvr_tpu_torch/__init__.py``);
+    ``test_first_parallel_exp_is_high_accuracy`` holds that.
   * the unfused route: rtol 1e-3 / atol 1e-4 against JAX (the JAX suite's
     own between its routes); rtol 1e-5 against the port's fused plain
     version (the same neighbours and arithmetic).
 The CUDA kernel ``csrc/knn_topk.cu`` is held against ``knn_topk_plain`` on
 the card by chip_smoke.py and the self-check.
 """
+import os
 import shutil
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -103,6 +109,35 @@ def test_aggregate_matches_jax(rng, case):
     got = knn.aggregate(*_torch(d, idx, pbw), RADIUS, EPS).numpy()
     assert got.shape == ref.shape == (q.shape[0], pts.shape[0], 25)
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+
+
+_FIRST_EXP = '''
+import numpy as np, torch
+import instant_nvr_tpu_torch
+torch.set_num_threads(8)
+x = torch.from_numpy(-np.random.default_rng(0).uniform(0, 87, 128_000).astype(np.float32))
+first = torch.exp(x)                 # the process's first exp over 8 threads
+torch.set_num_threads(1)
+print(int((first != torch.exp(x)).sum()))
+'''
+
+
+def test_first_parallel_exp_is_high_accuracy():
+    """A process's first torch.exp over OpenMP threads, after the port's
+    import, equals a later one on one thread, bit for bit.  Without the
+    import's warm-up, one thread's slice may come from MKL's AVX2
+    enhanced-performance exp, up to 1.5e-4 off; 8 fresh processes started
+    at once provoke that race, and this test then failed 4 runs of 10 on an
+    8-core host.  Bit-equality: both calls take MKL's high-accuracy kernel,
+    whose result for an element does not depend on how the array is split."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_EXP], env=env, cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(8)]
+    outs = [p.communicate(timeout=240) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [err[-2000:] for _, err in outs]
+    assert [int(out.split()[-1]) for out, _ in outs] == [0] * 8
 
 
 @pytest.mark.parametrize("ref", ["pallas-unfused", "xla"])

@@ -26,6 +26,7 @@ from instant_nvr_tpu_torch.train.step import table_grad_launches
 
 PLAIN = {"segmented": scatter.segmented_scatter_add_plain,
          "onehot": scatter.onehot_scatter_add_plain}
+H100_SMS = 132            # the H100 SXM's SM count, which the wrapper reads
 
 
 def _records(rng, level_offsets, r_per_level, F, pileup=0.0, levels=None):
@@ -210,3 +211,121 @@ def test_grad_route_rules():
     assert hg.grad_route(hg.KERNEL_MIN_ROWS, 1, big, torch.bfloat16, False) == "segmented"
     # a small table whose window does not fit a block takes the segmented kernel
     assert hg.grad_route(100_000, 4, (0, 100_000), torch.bfloat16, False) == "segmented"
+
+
+def _flagship_onehot_tables():
+    """(level_offsets, records per call) of the flagship's one-hot tables, as
+    the train smoke calls them, and of the self-check's [1c] level."""
+    cfg = make_cfg("configs/inb/inb_377.yaml")
+    mspec = inb.build_model_spec(cfg)
+    arm = mspec.part_embeds[mspec.partnames.index("larm")]
+    dense, hashed = mspec.deformer.embed.tables()[0][2], mspec.deformer.embed.tables()[-1][2]
+    return {"deformer-hash": (hashed, (len(hashed) - 1) * 8 * 22528),
+            "deformer-dense": (dense, (len(dense) - 1) * 8 * 22528),
+            "arm-dense": (arm.tables()[0][2], (len(arm.tables()[0][2]) - 1) * 8 * 2048),
+            "selfcheck-1c": ((0, 12276), 1_081_344)}
+
+
+@pytest.mark.parametrize("F", [1, 2])
+@pytest.mark.parametrize("table", ["deformer-hash", "deformer-dense", "arm-dense",
+                                   "selfcheck-1c"])
+def test_onehot_plan_cluster_shapes(table, F):
+    """Valid cluster shapes: at most 8 blocks a cluster, about BLOCK_ELEMS
+    elements a block; a level that needs more than 8 blocks takes full
+    clusters, no more than fill the card once and no more than its records
+    need; the widest window x F floats of shared memory, within the card's
+    232,448 B."""
+    offs, R = _flagship_onehot_tables()[table]
+    L = len(offs) - 1
+    clusters, size, smem = scatter.onehot_plan(offs, R, F, H100_SMS)
+    widest = max(b - a for a, b in zip(offs[:-1], offs[1:]))
+    assert smem == widest * F * 4 <= scatter.ONEHOT_SMEM_BYTES
+    need = -(-(R // L * F) // scatter.BLOCK_ELEMS)           # blocks a level needs
+    assert 1 <= size <= scatter.CLUSTER_MAX and clusters >= 1
+    if need <= scatter.CLUSTER_MAX:
+        assert (clusters, size) == (1, need)
+    else:
+        assert size == scatter.CLUSTER_MAX
+        assert clusters == 1 or clusters * size * L <= H100_SMS
+        assert clusters * size < need + scatter.CLUSTER_MAX
+
+
+def test_onehot_plan_of_the_main_path():
+    """The deformer's hash levels spread over six clusters each (the
+    workspace path), the arm's dense levels take one cluster of 4, [1c]
+    fills the card; a smaller card gets fewer clusters."""
+    tables = _flagship_onehot_tables()
+    assert scatter.onehot_plan(*tables["deformer-hash"], 1, H100_SMS) == (6, 8, 16411 * 4)
+    assert scatter.onehot_plan(*tables["arm-dense"], 1, H100_SMS)[:2] == (1, 4)
+    assert scatter.onehot_plan((0, 12276), 1_081_344, 1, H100_SMS) == (16, 8, 12276 * 4)
+    assert scatter.onehot_plan((0, 12276), 1_081_344, 2, H100_SMS) == (16, 8, 12276 * 8)
+    assert scatter.onehot_plan((0, 12276), 1_081_344, 2, 66) == (8, 8, 12276 * 8)
+    assert scatter.onehot_plan(*tables["deformer-hash"], 1, 16) == (1, 8, 16411 * 4)
+    assert scatter.onehot_plan((0, 5, 10), 0, 1, H100_SMS) == (1, 1, 20)  # no records
+
+
+@pytest.mark.parametrize("offs,F", [((0, 58_113), 1), ((0, 29_057), 2),
+                                    (tuple(range(66)), 1)])
+def test_onehot_plan_refuses(offs, F):
+    """A window over 232,448 B of shared memory, or more than 64 levels."""
+    with pytest.raises(ValueError, match="exceeds"):
+        scatter.onehot_plan(offs, 65 * 1024, F, H100_SMS)
+
+
+def test_workspace_grows_and_never_shrinks():
+    dev, stream = torch.device("cpu"), -12345        # a key no wrapper uses
+    try:
+        a = scatter.workspace(dev, 100, stream)
+        assert a.dtype == torch.float32 and a.numel() == 100 and not a.any()
+        assert scatter.workspace(dev, 40, stream) is a
+        b = scatter.workspace(dev, 300, stream)
+        assert b.numel() == 300 and not b.any()
+        assert scatter.workspace(dev, 100, stream) is b
+        assert scatter.workspace(dev, 10, stream - 1) is not b    # per stream
+        base = scatter.workspace_nonzero()
+        b[7] = -0.0                            # a nonzero word, though == 0
+        assert scatter.workspace_nonzero() == base + 1
+    finally:
+        for key in [k for k in scatter._workspaces if k[1] in (stream, stream - 1)]:
+            del scatter._workspaces[key]
+
+
+@pytest.mark.parametrize("F", [1, 2])
+def test_wrappers_on_cpu_count_no_launch_and_hold_no_workspace(rng, F):
+    offs = (0, 64, 189, 532, 1532)
+    keys, pay = _records(rng, offs, 300, F)
+    k, p = torch.from_numpy(keys), torch.from_numpy(pay).to(torch.bfloat16)
+    before = (scatter.segmented_scatter_add.launches,
+              scatter.onehot_scatter_add.launches, dict(scatter._workspaces))
+    want = scatter.segmented_scatter_add_plain(k, p, offs[-1])
+    for fn in (scatter.segmented_scatter_add, scatter.onehot_scatter_add):
+        got = fn(k, p, offs[-1], offs)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert (scatter.segmented_scatter_add.launches,
+            scatter.onehot_scatter_add.launches, scatter._workspaces) == before
+
+
+def test_scatter_ab_loads_another_checkout(rng):
+    """tools/scatter_ab loads a checkout's scatter module under another
+    package name (here this checkout's own), whose kernels would build
+    under that checkout; on CPU tensors its wrappers give the plain result."""
+    import importlib
+    import os
+    import sys
+    from instant_nvr_tpu_torch.tools import scatter_ab
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        other = scatter_ab.load_other(root)
+        assert other.__name__ == f"{scatter_ab.ALIAS}.ops.scatter"
+        assert other is not scatter
+        build = importlib.import_module(f"{scatter_ab.ALIAS}.cuda_build").BUILD_DIR
+        assert str(build).startswith(root)
+        offs = (0, 64, 189)
+        keys, pay = _records(rng, offs, 100, 1)
+        k, p = torch.from_numpy(keys), torch.from_numpy(pay).to(torch.bfloat16)
+        for name in ("segmented_scatter_add", "onehot_scatter_add"):
+            assert torch.equal(getattr(other, name)(k, p, offs[-1], offs),
+                               getattr(scatter, name)(k, p, offs[-1], offs))
+    finally:
+        for name in [m for m in sys.modules if m.split(".")[0] == scatter_ab.ALIAS]:
+            del sys.modules[name]
