@@ -13,7 +13,13 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      one, and the kernel's bound (the larger of its float32 operations over
      67 TFLOP/s and its bytes over 3.35 TB/s: the H100 SXM's published
      peaks); ``knn_blend_unfused`` (``knn_topk`` + ``aggregate``) against
-     ``knn_blend``.  The scatters also run on the records of one train
+     ``knn_blend``.  The KNN kernels run on the render chunk (C =
+     65,536), the train step's shape (C = 16,384), ragged parts and an
+     adversarial case for their filter (+2 m offsets, duplicated vertices,
+     queries on vertices and midpoints), each with the profiler's device
+     time per call beside the event time; ``knn_blend``'s epilogue also
+     runs on misaligned and wide blend-weight rows.  The scatters also run
+     on the records of one train
      step, a hot coarse level (bit-exact), keys outside the table and the
      self-check's [1c] shape, with the profiler's kernel time per call
      beside the event time, and the scatter workspace must be all zero
@@ -38,9 +44,10 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      on any failure and checks every kernel's launch count, ``knn_topk``'s
      included.
 Then one JSON line of kernel numbers (launches: the render, train and
-self-check phases together; a scatter row's times are its first case,
-uniform keys at the main path's shape, with its train-step case beside them
-as ``train_records_*``),
+self-check phases together; a KNN row's times are the render chunk's,
+with the train step's shape beside them as ``train_shape_*``; a scatter
+row's times are its first case, uniform keys at the main path's shape, with
+its train-step case beside them as ``train_records_*``),
 the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -151,23 +158,105 @@ def blend_agree(name, got, ref, query, part_pts, lengths):
 
 def knn_case(name, inputs, knn):
     """Kernel vs plain on one input; returns (max_abs_err, ms, plain_ms,
-    (bound_ms, bound_by))."""
+    (bound_ms, bound_by), device_ms)."""
     import torch
     query, part_pts, part_pbw, lengths = inputs
     got = knn.knn_blend(query, part_pts, part_pbw, lengths)
     ref = knn.knn_blend_plain(query, part_pts, part_pbw, lengths)
     torch.cuda.synchronize()
     err, note = blend_agree(name, got, ref, query, part_pts, lengths)
-    ms = cuda_median_ms(lambda: knn.knn_blend(query, part_pts, part_pbw, lengths))
+    call = lambda: knn.knn_blend(query, part_pts, part_pbw, lengths)
+    ms = cuda_median_ms(call)
+    dev_ms = device_ms(call)
     plain_ms = cuda_median_ms(
         lambda: knn.knn_blend_plain(query, part_pts, part_pbw, lengths))
     D = part_pbw.shape[2]
     bnd = knn_bound(query, part_pts, lengths, got.numel() * 4, row_bytes=D * 4)
     phase("kernel", case=name, C=query.shape[0], lengths=lengths.tolist(),
           max_abs_err=f"{err:.3e}", tol="rtol=1e-4,atol=1e-5", check=note,
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bnd[0]:.4f}",
-          bound_by=bnd[1])
-    return err, ms, plain_ms, bnd
+          ms=f"{ms:.4f}", device_ms=fmt_ms(dev_ms), plain_ms=f"{plain_ms:.4f}",
+          bound_ms=f"{bnd[0]:.4f}", bound_by=bnd[1])
+    return err, ms, plain_ms, bnd, dev_ms
+
+
+def knn_inputs(dev, rng):
+    """The KNN cases, {name: (query (C, 3), part_pts (P, M, 3), part_pbw
+    (P, M, 24), lengths (P,) int32)} on ``dev``: the inb_377 render chunk
+    and the ragged parts from ``rng`` (in that order), the train step's
+    shape and the filter's adversarial case from ``default_rng(1)``."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(n_verts=6890, grid=32)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    verts = scene["verts"]
+    pts, pbw, lens = (t(scene[k]) for k in ("part_pts", "part_pbw", "lengths2"))
+
+    def near_surface(r, C):
+        """C queries near the surface, like the culled samples."""
+        q = verts[r.integers(0, len(verts), C)] + r.normal(scale=0.03, size=(C, 3))
+        return t(q.astype(np.float32))
+    # C = 65,536: the cull budget of one 4,096-ray x 64-sample chunk
+    cases = {"inb_377-chunk": (near_surface(rng, 65536), pts, pbw, lens)}
+    # ragged parts: empty and nearly empty parts, C not a multiple of 128
+    lengths = np.array([2297, 4593, 0, 0, 17], np.int32)
+    P, M, C2 = 5, 4593, 65536 - 37
+    cases["ragged"] = (t(rng.normal(scale=0.3, size=(C2, 3)).astype(np.float32)),
+                       t((0.3 * rng.normal(size=(P, M, 3))).astype(np.float32)),
+                       t(rng.uniform(size=(P, M, 24)).astype(np.float32)), t(lengths))
+    extra = np.random.default_rng(1)
+    # C = 16,384: the train step's cull budget (0.25 x 1,024 rays x 64
+    # samples)
+    cases["train-shape"] = (near_surface(extra, 16384), pts, pbw, lens)
+    # the filter's adversarial case: the scene moved by +2 m on each axis
+    # (|q|^2 ~ 12: the widest margin), every third vertex a copy of the one
+    # before it (exact ties), and queries on vertices or on the midpoint
+    # between a vertex and its nearest other position (the nearest 2 to 4
+    # tie or nearly tie)
+    adv = scene["part_pts"] + np.float32(2.0)
+    adv[:, 1::3] = adv[:, 0:-1:3][:, :adv[:, 1::3].shape[1]]
+    L = scene["lengths2"].astype(np.int64)
+    C3 = 16384 - 5
+    part = extra.integers(0, len(L), C3)
+    a = adv[part, (extra.random(C3) * L[part]).astype(np.int64)]
+    b = np.empty_like(a)
+    for p in range(len(L)):
+        rows = np.nonzero(part == p)[0]
+        d = ((a[rows, None].astype(np.float64) - adv[p, None, :L[p]]) ** 2).sum(-1)
+        d[d == 0] = np.inf
+        b[rows] = adv[p, d.argmin(-1)]
+    on_vertex = extra.random(C3) < 0.5
+    q = np.where(on_vertex[:, None], a, (a + b) * np.float32(0.5)).astype(np.float32)
+    cases["adversarial"] = (t(q), t(adv), pbw, lens)
+    return cases
+
+
+def epilogue_cases(inputs, knn):
+    """``knn_blend``'s other epilogue paths against the plain version on
+    the first 4,096 queries of ``inputs``: blend-weight rows of D = 24
+    floats 4 bytes off 16-byte alignment (scalar loads, staged stores), and
+    D = 40 and 41 (rows too wide to stage: direct stores, with 16-byte and
+    scalar loads).  Returns the largest error."""
+    import numpy as np
+    import torch
+    query, part_pts, _, lengths = inputs
+    query = query[:4096]
+    P, M = part_pts.shape[:2]
+    rng = np.random.default_rng(2)
+    errs = []
+    for D, offset in ((24, 1), (40, 0), (41, 0)):
+        buf = torch.empty(P * M * D + offset, device=query.device)
+        pbw = buf[offset:].view(P, M, D)
+        pbw.copy_(torch.from_numpy(rng.uniform(size=(P, M, D)).astype(np.float32)))
+        got = knn.knn_blend(query, part_pts, pbw, lengths)
+        ref = knn.knn_blend_plain(query, part_pts, pbw, lengths)
+        torch.cuda.synchronize()
+        err, note = blend_agree(f"epilogue-D{D}", got, ref, query, part_pts, lengths)
+        phase("kernel", case=f"epilogue-D{D}", C=query.shape[0],
+              aligned=pbw.data_ptr() % 16 == 0, max_abs_err=f"{err:.3e}",
+              tol="rtol=1e-4,atol=1e-5", check=note)
+        errs.append(err)
+    return max(errs)
 
 
 def sort_slots(d2, idx):
@@ -186,7 +275,7 @@ TOPK_TOL = ("real slots: d2 bit-equal, idx equal but at exact 4th/5th distance "
 def topk_case(name, inputs, knn):
     """``knn_topk`` vs ``knn_topk_plain``, then ``knn_blend_unfused`` vs
     ``knn_blend``, on one input; returns (max_abs_err, ms, plain_ms,
-    (bound_ms, bound_by))."""
+    (bound_ms, bound_by), device_ms)."""
     import torch
     query, part_pts, part_pbw, lengths = inputs
     C, (P, M) = query.shape[0], part_pts.shape[:2]
@@ -219,14 +308,16 @@ def topk_case(name, inputs, knn):
     note = f"{len(rows)} rows differ only by exact distance ties" if len(rows) \
         else "exact-selection"
     dist = torch.sqrt(torch.clamp(got[0], min=0.0))
-    ms = cuda_median_ms(lambda: knn.knn_topk(query, part_pts, lengths))
+    call = lambda: knn.knn_topk(query, part_pts, lengths)
+    ms = cuda_median_ms(call)
+    dev_ms = device_ms(call)
     plain_ms = cuda_median_ms(lambda: knn.knn_topk_plain(query, part_pts, lengths))
     agg_ms = cuda_median_ms(lambda: knn.aggregate(dist, got[1], part_pbw))
     bnd = knn_bound(query, part_pts, lengths, P * C * 4 * 8)
     phase("kernel", case=f"{name}-topk", C=C, lengths=lengths.tolist(),
           max_abs_err=f"{err:.3e}", tol=repr(TOPK_TOL), check=note,
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", aggregate_ms=f"{agg_ms:.4f}",
-          bound_ms=f"{bnd[0]:.4f}", bound_by=bnd[1])
+          ms=f"{ms:.4f}", device_ms=fmt_ms(dev_ms), plain_ms=f"{plain_ms:.4f}",
+          aggregate_ms=f"{agg_ms:.4f}", bound_ms=f"{bnd[0]:.4f}", bound_by=bnd[1])
     unfused = knn.knn_blend_unfused(query, part_pts, part_pbw, lengths)
     fused = knn.knn_blend(query, part_pts, part_pbw, lengths)
     torch.cuda.synchronize()
@@ -237,7 +328,7 @@ def topk_case(name, inputs, knn):
     phase("kernel", case=f"{name}-unfused-vs-fused", C=C,
           max_abs_err=f"{u_err:.3e}", tol="rtol=1e-4,atol=1e-5", check=u_note,
           unfused_ms=f"{u_ms:.4f}")
-    return err, ms, plain_ms, bnd
+    return err, ms, plain_ms, bnd, dev_ms
 
 
 SCATTER_TOL = ("|kernel-plain| <= 1 bf16 ulp of the row + n_row*2^-24*sum|payload| "
@@ -272,6 +363,10 @@ def device_ms(fn, n=N_TIMED):
     the trace holds no device time."""
     by_kernel = device_ms_by_kernel(fn, n)
     return sum(by_kernel.values()) if by_kernel else None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def kernel_name(key):
@@ -733,7 +828,6 @@ def main() -> int:
             instant_nvr_tpu_torch.__file__))) != HERE:
         raise RuntimeError("instant_nvr_tpu_torch must come from this checkout")
     from instant_nvr_tpu_torch.config import make_cfg
-    from instant_nvr_tpu_torch.datasets import synthetic
     from instant_nvr_tpu_torch.eval.runner import AutoBudgetRenderer, eval_chunk
     from instant_nvr_tpu_torch.ops import knn, scatter
     from instant_nvr_tpu_torch import cuda_build, run
@@ -762,25 +856,10 @@ def main() -> int:
     # 3. kernel vs plain, at the render and train paths' shapes
     cfg = make_cfg(CFG)
     rng = np.random.default_rng(0)
-    scene = synthetic.make_scene(n_verts=6890, grid=32)
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    # C = 65,536: the cull budget of one 4,096-ray x 64-sample chunk;
-    # queries near the surface, like the culled samples
-    C = 65536
-    q = scene["verts"][rng.integers(0, len(scene["verts"]), C)] \
-        + rng.normal(scale=0.03, size=(C, 3))
-    chunk_case = (t(q.astype(np.float32)), t(scene["part_pts"]),
-                  t(scene["part_pbw"]), t(scene["lengths2"]))
-    # ragged parts: empty and nearly empty parts, C not a multiple of 128
-    lengths = np.array([2297, 4593, 0, 0, 17], np.int32)
-    P, M, C2 = 5, 4593, C - 37
-    ragged_case = (t(rng.normal(scale=0.3, size=(C2, 3)).astype(np.float32)),
-                   t((0.3 * rng.normal(size=(P, M, 3))).astype(np.float32)),
-                   t(rng.uniform(size=(P, M, 24)).astype(np.float32)), t(lengths))
-    blend = [knn_case("inb_377-chunk", chunk_case, knn),
-             knn_case("ragged", ragged_case, knn)]
-    topk = [topk_case("inb_377-chunk", chunk_case, knn),
-            topk_case("ragged", ragged_case, knn)]
+    cases = knn_inputs(dev, rng)
+    blend = {n: knn_case(n, c, knn) for n, c in cases.items()}
+    epilogue_err = epilogue_cases(cases["inb_377-chunk"], knn)
+    topk = {n: topk_case(n, c, knn) for n, c in cases.items()}
     scatter_res = scatter_cases(cfg, dev, rng)
 
     # 4. the render slice: full-width inb_377 through run --type render's
@@ -855,11 +934,17 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "bounded_by": bnd[1], "library_ms": library_ms}
     # no single PyTorch call computes a per-part 4-NN over ragged lengths:
-    # the two KNN rows have no library time
-    rows = [row("knn_blend", "knn_blend.cu", "knn_pallas.py:111",
-                max(b[0] for b in blend), *blend[0][1:]),
-            row("knn_topk", "knn_topk.cu", "knn_pallas.py:36",
-                max(b[0] for b in topk), *topk[0][1:])]
+    # the two KNN rows have no library time; their times are the render
+    # chunk's, the train step's shape beside them
+    rows = []
+    for name, src, replaces, res in (("knn_blend", "knn_blend.cu", "knn_pallas.py:111", blend),
+                                     ("knn_topk", "knn_topk.cu", "knn_pallas.py:36", topk)):
+        chunk, train = res["inb_377-chunk"], res["train-shape"]
+        errs = [v[0] for v in res.values()] + ([epilogue_err] if res is blend else [])
+        r = row(name, src, replaces, max(errs), *chunk[1:4])
+        r.update(device_ms=chunk[4], train_shape_ms=train[1],
+                 train_shape_device_ms=train[4])
+        rows.append(r)
     for name, src, replaces in (
             ("segmented_scatter_add", "segmented_scatter.cu",
              "segmented_scatter.py:156"),

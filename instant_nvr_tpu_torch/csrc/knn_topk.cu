@@ -11,16 +11,17 @@
 // and index 0, the TPU kernel's initial values (knn_pallas.py:99-100): its
 // gaussian weight is exactly 0, and the index is safe to gather with.
 //
-// Design.  Pass 1 is knn_blend.cu's (knn_select.cuh): one thread per
-// (query, part), one block per (128-query tile, part), grid (ceil(C/128),
-// P); the part's real vertices stream through shared memory and each thread
-// keeps its best 4 sorted in registers.  The thread then writes its 4
-// distances as one 16-byte store and its 4 indices as another.
+// Design.  Pass 1 is knn_blend.cu's (knn_select.cuh: a three-FMA filter
+// with an exact re-check, 2 queries per thread, blocks of 64 threads ranked
+// longest part first, double-buffered tiles).  Each thread then writes,
+// for each of its queries, the 4 distances as one 16-byte store and the 4
+// indices as another; neighbouring threads hold neighbouring queries, so a
+// warp's stores are contiguous.
 //
-// What bounds it: compute, as knn_blend.cu.  About 8 flops per (query,
-// vertex) pair, C * sum(lengths) * 8 ~ 3.6 GFLOP at 65,536 queries and
-// 6,890 vertices, on the SMs' float32 units; the outputs are P * C * 32
-// bytes (10.5 MB there).
+// What bounds it: issued instructions, as knn_blend.cu (chip_smoke.py
+// counts 8 float32 operations per (query, vertex) pair for the bound:
+// C * sum(lengths) * 8 ~ 3.6 GFLOP at 65,536 queries and 6,890 vertices);
+// the outputs are P * C * 32 bytes (10.5 MB there).
 #include <cuda_runtime.h>
 
 #include "knn_select.cuh"
@@ -28,8 +29,8 @@
 namespace {
 
 using knn_select::kK;
+using knn_select::kQ;
 using knn_select::kThreads;
-using knn_select::kTile;
 
 static_assert(kK == 4, "one float4 / int4 store per (query, part)");
 
@@ -39,28 +40,40 @@ knn_topk_kernel(const float* __restrict__ query,     // (C, 3)
                 const int* __restrict__ lengths,     // (P,)
                 float4* __restrict__ out_d2,         // (P, C) x 4
                 int4* __restrict__ out_idx,          // (P, C) x 4
-                int C, int M) {
-  __shared__ float4 tile[kTile];
-  const int p = blockIdx.y;
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = c < C;
+                int C, int P, int M) {
+  __shared__ knn_select::Tiles sm;
+  __shared__ knn_select::Plan plan;
+  if (threadIdx.x == 0) plan = knn_select::make_plan(lengths, P, M, blockIdx.y);
+  __syncthreads();
+  const knn_select::Plan pl = plan;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    qx = query[3 * c + 0];
-    qy = query[3 * c + 1];
-    qz = query[3 * c + 2];
+  int c[kQ];
+  bool live[kQ];
+  float qx[kQ], qy[kQ], qz[kQ];
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    c[i] = (blockIdx.x * kQ + i) * kThreads + threadIdx.x;
+    live[i] = c[i] < C;
+    const int cc = live[i] ? c[i] : 0;
+    qx[i] = query[3 * cc + 0];
+    qy[i] = query[3 * cc + 1];
+    qz[i] = query[3 * cc + 2];
   }
-  float bd[kK];
-  int bi[kK];
-  knn_select::best_k(part_pts + (size_t)p * M * 3, max(0, min(lengths[p], M)),
-                     qx, qy, qz, tile, bd, bi);
-  if (!live) return;
+  unsigned long long key[kQ][kK];
+  knn_select::best_k(part_pts + (size_t)pl.part * M * 3, pl, qx, qy, qz, live,
+                     sm, key);
 
-  const size_t o = (size_t)p * C + c;
-  out_d2[o] = make_float4(bd[0], bd[1], bd[2], bd[3]);
-  out_idx[o] = make_int4(max(bi[0], 0), max(bi[1], 0), max(bi[2], 0),
-                         max(bi[3], 0));
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    if (!live[i]) continue;
+    const size_t o = (size_t)pl.part * C + c[i];
+    out_d2[o] = make_float4(knn_select::key_d2(key[i][0]), knn_select::key_d2(key[i][1]),
+                            knn_select::key_d2(key[i][2]), knn_select::key_d2(key[i][3]));
+    out_idx[o] = make_int4(knn_select::key_index(key[i][0]),
+                           knn_select::key_index(key[i][1]),
+                           knn_select::key_index(key[i][2]),
+                           knn_select::key_index(key[i][3]));
+  }
 }
 
 }  // namespace
@@ -69,9 +82,9 @@ knn_topk_kernel(const float* __restrict__ query,     // (C, 3)
 extern "C" int knn_topk_launch(const float* query, const float* part_pts,
                                const int* lengths, float* out_d2, int* out_idx,
                                int C, int P, int M, void* stream) {
-  const dim3 grid((C + kThreads - 1) / kThreads, P);
+  const dim3 grid((C + kThreads * kQ - 1) / (kThreads * kQ), P);
   knn_topk_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       query, part_pts, lengths, reinterpret_cast<float4*>(out_d2),
-      reinterpret_cast<int4*>(out_idx), C, M);
+      reinterpret_cast<int4*>(out_idx), C, P, M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -217,3 +217,29 @@ def test_library_path_hashes_headers(tmp_path, monkeypatch):
     src.write_text(src.read_text() + "\n// edited\n")
     assert cuda_build.library_path("knn_topk") != after["knn_topk"]
     assert cuda_build.library_path("knn_blend") == after["knn_blend"]
+
+
+def test_kernel_ab_loads_another_checkouts_knn(rng):
+    """tools/kernel_ab loads a checkout's KNN module under another package
+    name (here this checkout's own), beside its scatter module from the same
+    package; on CPU tensors its wrappers give the plain result, and another
+    root while one is loaded is refused."""
+    import os
+    import sys
+    from instant_nvr_tpu_torch.tools import kernel_ab
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        other = kernel_ab.load_other(root, "knn")
+        assert other.__name__ == f"{kernel_ab.ALIAS}.ops.knn" and other is not knn
+        scatter = kernel_ab.load_other(root, "scatter")
+        assert scatter.__name__.startswith(kernel_ab.ALIAS)
+        q, pts, pbw, lengths = _torch(*_inputs(rng, *CASES["empty-and-padded"]))
+        assert torch.equal(other.knn_blend(q, pts, pbw, lengths),
+                           knn.knn_blend(q, pts, pbw, lengths))
+        for a, b in zip(other.knn_topk(q, pts, lengths), knn.knn_topk(q, pts, lengths)):
+            assert torch.equal(a, b)
+        with pytest.raises(RuntimeError):
+            kernel_ab.load_other(os.path.join(root, "elsewhere"), "knn")
+    finally:
+        for name in [m for m in sys.modules if m.split(".")[0] == kernel_ab.ALIAS]:
+            del sys.modules[name]

@@ -306,19 +306,19 @@ def test_wrappers_on_cpu_count_no_launch_and_hold_no_workspace(rng, F):
 
 
 def test_scatter_ab_loads_another_checkout(rng):
-    """tools/scatter_ab loads a checkout's scatter module under another
+    """tools/kernel_ab loads a checkout's scatter module under another
     package name (here this checkout's own), whose kernels would build
     under that checkout; on CPU tensors its wrappers give the plain result."""
     import importlib
     import os
     import sys
-    from instant_nvr_tpu_torch.tools import scatter_ab
+    from instant_nvr_tpu_torch.tools import kernel_ab
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     try:
-        other = scatter_ab.load_other(root)
-        assert other.__name__ == f"{scatter_ab.ALIAS}.ops.scatter"
+        other = kernel_ab.load_other(root, "scatter")
+        assert other.__name__ == f"{kernel_ab.ALIAS}.ops.scatter"
         assert other is not scatter
-        build = importlib.import_module(f"{scatter_ab.ALIAS}.cuda_build").BUILD_DIR
+        build = importlib.import_module(f"{kernel_ab.ALIAS}.cuda_build").BUILD_DIR
         assert str(build).startswith(root)
         offs = (0, 64, 189)
         keys, pay = _records(rng, offs, 100, 1)
@@ -327,5 +327,5 @@ def test_scatter_ab_loads_another_checkout(rng):
             assert torch.equal(getattr(other, name)(k, p, offs[-1], offs),
                                getattr(scatter, name)(k, p, offs[-1], offs))
     finally:
-        for name in [m for m in sys.modules if m.split(".")[0] == scatter_ab.ALIAS]:
+        for name in [m for m in sys.modules if m.split(".")[0] == kernel_ab.ALIAS]:
             del sys.modules[name]
