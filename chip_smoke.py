@@ -6,7 +6,8 @@
 Phases, each printing one line or more; any failure raises (non-zero exit):
   1. device: the card's name and power limit; TF32 off.
   2. build: compiles the port's CUDA kernels from this checkout's sources,
-     one nvcc each, all at once; prints ptxas registers and spills.
+     one nvcc each, all at once; prints ptxas registers and spills; then
+     the data layer's native host library (``csrc/nvrhost.cpp``, g++).
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the main paths' shapes, with median times over 20 runs, the
      time of one PyTorch library call for the same function where there is
@@ -43,11 +44,28 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      2/1 on wide levels, matmul precision, 11 full-width train steps); fails
      on any failure and checks every kernel's launch count, ``knn_topk``'s
      included.
-Then one JSON line of kernel numbers (launches: the render, train and
-self-check phases together; a KNN row's times are the render chunk's,
-with the train step's shape beside them as ``train_shape_*``; a scatter
-row's times are its first case, uniform keys at the main path's shape, with
-its train-step case beside them as ``train_records_*``),
+  8. patch slice: the training run of ``python -m
+     instant_nvr_tpu_torch.train_net --cfg_file configs/inb/inb_fake.yaml``
+     (``train/loop.py:train``) at full width in patch-LPIPS mode (4,096
+     rays a step as one 64x64 patch): writes the fake subject with the
+     port's own writer (3 views x 4 frames at 512^2, 2,000 vertices;
+     supersample cut to 1), trains 2 epochs of 10 steps through both
+     ``ratio`` stages of inb_377 (0.3, then 0.5 with the head focus), then
+     resumes from the checkpoint for a third epoch; checks finite losses,
+     the checkpoint layout, the resumed epoch and step, and every launch
+     count against the step's routing; prints ms per step, rays/s, the
+     host data-wait share per epoch, the busy share of a 5-step profiler
+     window and peak memory; checks the stager's copies against the host
+     items; times each kernel on one patch step's own inputs; holds one
+     patch step (``patch_size`` 16) card vs CPU.
+Then one JSON line of kernel numbers (launches: the render, train,
+self-check and patch phases together; a KNN row's times are the render
+chunk's, with the train step's shape beside them as ``train_shape_*``; a
+scatter row's times are its first case, uniform keys at the main path's
+shape, with its train-step case beside them as ``train_records_*``; every
+row also has ``patch_step_launches``, the patch runs' launches over their
+steps, and a row on the patch path its times on the patch step's own
+inputs as ``patch_shape_*``),
 the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -738,10 +756,30 @@ def compare_grads(got_tree, want_tree):
     return worst
 
 
+def compare_step(loss_g, loss_c, grad_g, grad_c, par_g, par_c, lr):
+    """One step's loss (rtol 1e-3), gradients (``compare_grads``) and
+    updated parameters, card against CPU; returns (worst gradient relative
+    L2, parameter entries that differ by more than 1e-6)."""
+    import numpy as np
+    if not np.isfinite(loss_g) or abs(loss_g - loss_c) > 1e-3 * abs(loss_c):
+        raise AssertionError(f"loss card {loss_g} vs cpu {loss_c}")
+    worst = compare_grads(grad_g, grad_c)
+    # Adam's first update is lr * g / (|g| + eps): an entry moves by lr with
+    # the sign of its gradient, so an entry whose gradient is ~0 may move by
+    # up to lr either way on either side
+    moved = 0
+    want = dict(_leaves(par_c))
+    for k, p in _leaves(par_g):
+        d = np.abs(p - want[k])
+        if d.max() > 2.1 * lr:
+            raise AssertionError(f"param {k}: differs by {d.max()} > 2.1 lr")
+        moved += int((d > 1e-6).sum())
+    return worst, moved
+
+
 def card_vs_cpu_step(cfg, dev):
     """One full-width MSE step on 16 rays, card vs CPU, same weights and
     draws."""
-    import numpy as np
     import torch
     from instant_nvr_tpu_torch import bridge, run, train_net
     from instant_nvr_tpu_torch.renderer.inb_renderer import pair_budget
@@ -765,20 +803,8 @@ def card_vs_cpu_step(cfg, dev):
         out.append((float(stats["loss"]), bridge.tree_from_model(model, "grad"),
                     bridge.tree_from_model(model, "data")))
     (loss_c, grad_c, par_c), (loss_g, grad_g, par_g) = out
-    if not np.isfinite(loss_g) or abs(loss_g - loss_c) > 1e-3 * abs(loss_c):
-        raise AssertionError(f"loss card {loss_g} vs cpu {loss_c}")
-    worst = compare_grads(grad_g, grad_c)
-    # Adam's first update is lr * g / (|g| + eps): an entry moves by lr with
-    # the sign of its gradient, so an entry whose gradient is ~0 may move by
-    # up to lr either way on either side
-    lr = cfg.train.lr
-    moved = 0
-    want = dict(_leaves(par_c))
-    for k, p in _leaves(par_g):
-        d = np.abs(p - want[k])
-        if d.max() > 2.1 * lr:
-            raise AssertionError(f"param {k}: differs by {d.max()} > 2.1 lr")
-        moved += int((d > 1e-6).sum())
+    worst, moved = compare_step(loss_g, loss_c, grad_g, grad_c, par_g, par_c,
+                                cfg.train.lr)
     phase("train-cuda-vs-cpu", rays=16, loss_card=f"{loss_g:.6f}",
           loss_cpu=f"{loss_c:.6f}", worst_grad_rel_l2=f"{worst:.3e}",
           params_differing=moved,
@@ -815,6 +841,264 @@ def selfcheck(dev, knn, scatter, routes):
     return got
 
 
+PATCH_EPOCH_STEPS = 10
+PATCH_PROFILE = (5, 10)       # the resumed run's (epoch 2's) last 5 steps
+
+
+def patch_cfg(root, exp_dir, epochs, **extra):
+    """inb_fake at full width on the subject at ``root``: 10 patch steps an
+    epoch, inb_377's first two ``ratio`` stages on epochs 0 and 1."""
+    from instant_nvr_tpu_torch.config import make_cfg
+    cfg = make_cfg(os.path.join(HERE, "configs", "inb", "inb_fake.yaml"))
+    data = {"data_root": root, "ann_file": os.path.join(root, "annots.npy")}
+    return cfg.merged({
+        "train_dataset": data, "val_dataset": data, "test_dataset": data,
+        "smpl_meta": os.path.join(root, "smpl-meta"),
+        "ep_iter": PATCH_EPOCH_STEPS, "train": {"epoch": epochs},
+        "log_interval": 5,
+        "training_stages": [{"ratio": 0.3, "_start": 0},
+                            {"ratio": 0.5, "sample_focus": "head", "_start": 1}],
+        "result_dir": exp_dir,
+        "trained_model_dir": os.path.join(exp_dir, "trained_model"),
+        "record_dir": os.path.join(exp_dir, "record"), **extra})
+
+
+def check_patch_run(label, res, first_epoch, routes, knn, scatter):
+    """Finite losses, the epochs run, and the launches against the
+    routing of the steps taken."""
+    import numpy as np
+    steps = len(res.losses)
+    got = {"knn_blend": knn.knn_blend.launches, "knn_topk": knn.knn_topk.launches,
+           "segmented_scatter_add": scatter.segmented_scatter_add.launches,
+           "onehot_scatter_add": scatter.onehot_scatter_add.launches}
+    if not (steps and np.isfinite(res.losses).all()):
+        raise AssertionError(f"{label}: losses {res.losses}")
+    if [e.epoch for e in res.epochs] != list(range(first_epoch, first_epoch
+                                                   + len(res.epochs))):
+        raise AssertionError(f"{label}: epochs {[e.epoch for e in res.epochs]}")
+    want = {"knn_blend": steps, "knn_topk": 0,
+            "segmented_scatter_add": steps * routes["segmented"],
+            "onehot_scatter_add": steps * routes["onehot"]}
+    if got != want or routes["exact"] or scatter.exact_scatter_add.calls:
+        raise AssertionError(f"{label}: launches {got} != {want} (exact "
+                             f"index_add_ calls {scatter.exact_scatter_add.calls})")
+    return got
+
+
+def check_stager(cfg, dev, n_items=24):
+    """The loop's staging path on the card: ``n_items`` patch items through
+    the ``Prefetcher`` (4 producer threads) and the ``DeviceStager``
+    (pinned copies on its side stream, the frame cache); after ``ready``
+    every device tensor, read on the consumer's stream, must equal its
+    host array."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.datasets.prefetch import DeviceStager, Prefetcher
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.train import loop
+    from instant_nvr_tpu_torch.train.stages import stage_for_epoch
+    ecfg = stage_for_epoch(cfg, 1)
+    ds = TPoseDataset(ecfg, "train")
+    cache = {}
+    stager = DeviceStager(dev, lambda item, put: loop.device_batch(
+        item, 0.1, put, cache=cache))
+    pf = Prefetcher(lambda i: ds.get_item(i % len(ds), ratio=ecfg.ratio,
+                                          rng=np.random.default_rng(i)),
+                    range(n_items), depth=8, device_put=stager, workers=4)
+    checked = 0
+    try:
+        for staged in pf:
+            item, batch = stager.ready(staged)
+            for k, t in batch.items():
+                want = np.float32(0.1) if k == "reg_dist_weight" else item[k]
+                if not np.array_equal(t.cpu().numpy(), want):
+                    raise AssertionError(f"stager: {k} differs from the host item")
+                checked += 1
+    finally:
+        pf.close()
+    phase("patch-stager", items=n_items, tensors_checked=checked,
+          cached_frames=len(cache["_frames"]), check="device == host after ready")
+
+
+def capture_patch_inputs(cfg, state, dev):
+    """The kernel inputs of one patch step (a ratio-0.5 item of the
+    subject): ('knn', (query, part_pts, part_pbw, lengths)) and
+    (route, (keys, payload, n_rows, level_offsets)) per call."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.ops import hashgrid as hg
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.train import loop
+    from instant_nvr_tpu_torch.train.stages import stage_for_epoch
+    from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
+    ecfg = stage_for_epoch(cfg, 1)
+    item = TPoseDataset(ecfg, "train").get_item(0, ratio=ecfg.ratio,
+                                                rng=np.random.default_rng(3))
+    batch = loop.device_batch(item, 0.1, lambda v: torch.as_tensor(np.asarray(v),
+                                                                   device=dev))
+    mspec = inb.build_model_spec(cfg)
+    step = make_train_step(mspec, make_render_spec(cfg), make_loss_weights(cfg),
+                           loop.make_patch_loss_fn(cfg))
+    calls, kernels, blend = [], dict(hg._SCATTER), inb.knn_blend
+
+    def spy_knn(query, part_pts, part_pbw, lengths, **kw):
+        calls.append(("knn", (query.clone(), part_pts, part_pbw, lengths)))
+        return blend(query, part_pts, part_pbw, lengths, **kw)
+
+    def spy(route):
+        def call(keys, payload, n_rows, level_offsets):
+            calls.append((route, (keys.clone(), payload.clone(), n_rows,
+                                  tuple(level_offsets))))
+            return kernels[route](keys, payload, n_rows, level_offsets)
+        return call
+    inb.knn_blend = spy_knn
+    hg._SCATTER.update({route: spy(route) for route in kernels})
+    try:
+        step(state, batch, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+    finally:
+        inb.knn_blend = blend
+        hg._SCATTER.update(kernels)
+    return calls
+
+
+def patch_kernel_cases(calls, knn, scatter):
+    """Each kernel against its plain version on the patch step's own
+    inputs (each table's largest call): {kernel: result tuple}."""
+    seg = (scatter.segmented_scatter_add, scatter.segmented_scatter_add_plain)
+    one = (scatter.onehot_scatter_add, scatter.onehot_scatter_add_plain)
+    out = {}
+    for route, args in calls:
+        if route == "knn":
+            out["knn_blend"] = knn_case("patch-step", args, knn)
+    for kernel, route, fns in (("segmented_scatter_add", "segmented", seg),
+                               ("onehot_scatter_add", "onehot", one)):
+        mine = [a for r, a in calls if r == route]
+        if not mine:
+            continue
+        keys, payload, n_rows, offs = max(mine, key=lambda a: a[0].shape[0])
+        out[kernel] = scatter_case(f"patch-step-{route}", *fns, keys, payload,
+                                   n_rows, offs)
+    return out
+
+
+def card_vs_cpu_patch_step(cfg, dev):
+    """One full-width patch step at patch_size 16 (256 rays), card vs CPU,
+    same weights, batch and draws, at the train-cuda-vs-cpu tolerances."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import bridge, run
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.train import loop
+    from instant_nvr_tpu_torch.train.state import create_train_state
+    from instant_nvr_tpu_torch.train.stages import stage_for_epoch
+    from instant_nvr_tpu_torch.train.step import (draw_render, make_loss_weights,
+                                                  make_train_step)
+    cfg = cfg.merged({"patch_size": 16})
+    cpu = torch.device("cpu")
+    ecfg = stage_for_epoch(cfg, 1)
+    item = TPoseDataset(ecfg, "train").get_item(1, ratio=ecfg.ratio,
+                                                rng=np.random.default_rng(4))
+    batch = loop.device_batch(item, 0.1, lambda v: torch.as_tensor(np.asarray(v)))
+    mspec, rspec, model_cpu = run.build(cfg, cpu, seed=0)
+    model_gpu = copy.deepcopy(model_cpu).to(dev)
+    step = make_train_step(mspec, rspec, make_loss_weights(cfg),
+                           loop.make_patch_loss_fn(cfg))
+    draws = draw_render(mspec, rspec, 256, torch.Generator().manual_seed(1), cpu)
+    out = []
+    for d, model in ((cpu, model_cpu), (dev, model_gpu)):
+        state = create_train_state(cfg, model)
+        _, stats = step(state, {k: v.to(d) for k, v in batch.items()},
+                        draws={k: v.to(d) for k, v in draws.items()})
+        out.append((float(stats["loss"]), float(stats["patch_loss"]),
+                    bridge.tree_from_model(model, "grad"),
+                    bridge.tree_from_model(model, "data")))
+    (loss_c, pl_c, grad_c, par_c), (loss_g, pl_g, grad_g, par_g) = out
+    worst, moved = compare_step(loss_g, loss_c, grad_g, grad_c, par_g, par_c,
+                                cfg.train.lr)
+    phase("patch-cuda-vs-cpu", rays=256, loss_card=f"{loss_g:.6f}",
+          loss_cpu=f"{loss_c:.6f}", lpips_card=f"{pl_g:.6f}", lpips_cpu=f"{pl_c:.6f}",
+          worst_grad_rel_l2=f"{worst:.3e}", params_differing=moved,
+          tol=repr("loss rtol 1e-3; grads bf16-sized; params <= 2.1 lr"))
+
+
+def patch_slice(dev, knn, scatter):
+    """Phase 8 (see the module doc).  Returns (launch counts of the two
+    training runs, the steps they took, the kernels' patch-shape results)."""
+    import shutil
+    import torch
+    from instant_nvr_tpu_torch.datasets.fake_zju import write_fake_dataset
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.train import loop
+    from instant_nvr_tpu_torch.train.checkpoint import STATE_FILE
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    root = os.path.join(HERE, "data", "fake_zju_smoke")
+    exp = os.path.join(HERE, "exps", "chip_smoke_patch")
+    shutil.rmtree(exp, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_fake_dataset(root, n_frames=4, n_views=3, n_verts=2000, H=512, W=512,
+                       supersample=1)
+    phase("patch-data", root=os.path.relpath(root, HERE), views=3, frames=4,
+          side=512, verts=2000, supersample=1,
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    cfg = patch_cfg(root, exp, epochs=2)
+    routes = table_grad_launches(inb.build_model_spec(cfg), make_render_spec(cfg))
+    n_rays = cfg.patch_size ** 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(knn, scatter)
+    res = loop.train(cfg, dev, resume=False)
+    counts = check_patch_run("patch train", res, 0, routes, knn, scatter)
+    model_dir = cfg.trained_model_dir
+    for tag in ("1", "latest"):
+        if not os.path.isfile(os.path.join(model_dir, tag, STATE_FILE)):
+            raise AssertionError(f"no checkpoint {tag}/{STATE_FILE} under {model_dir}")
+    saved_step, state = res.state.step, res.state
+    reset_counts(knn, scatter)
+    res2 = loop.train(patch_cfg(root, exp, epochs=3), dev, resume=True,
+                      profile_window=PATCH_PROFILE)
+    resumed = check_patch_run("patch resume", res2, 2, routes, knn, scatter)
+    if res2.state.step != saved_step + len(res2.losses):
+        raise AssertionError(f"resume: step {res2.state.step} != saved "
+                             f"{saved_step} + {len(res2.losses)}")
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: counts[k] + resumed[k] for k in counts}
+    assert_workspace_zero("patch slice")
+    epochs = res.epochs + res2.epochs
+    for e in epochs:
+        phase("patch-epoch", epoch=e.epoch, steps=e.steps, wall_s=f"{e.wall_s:.3f}",
+              ms_per_step=f"{1000 * e.wall_s / e.steps:.2f}",
+              data_wait_s=f"{e.data_s:.3f}",
+              data_wait_share=f"{e.data_s / e.wall_s:.4f}")
+    # ms a step: epoch 1, after the first steps and without the profiler
+    ms = 1000 * epochs[1].wall_s / epochs[1].steps
+    prof = res2.profile or {}
+    losses = res.losses + res2.losses
+    phase("patch-train", card=repr(nvidia_smi()), config="inb_fake (inb_377 widths)",
+          rays=n_rays,
+          samples=cfg.N_samples, steps=len(losses), epochs=len(epochs),
+          ms_per_step=f"{ms:.2f}", patch_rays_per_sec=f"{1000 * n_rays / ms:.1f}",
+          data_wait_share=[f"{e.data_s / e.wall_s:.4f}" for e in epochs],
+          profile_steps=prof.get("steps"), profile_wall_s=prof.get("wall_s"),
+          profile_device_s=prof.get("device_s"),
+          device_busy=("not measured" if prof.get("busy") is None
+                       else f"{prof['busy']:.3f}"),
+          peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{losses[0]:.5f}",
+          loss_last=f"{losses[-1]:.5f}", resumed_at_epoch=res2.epochs[0].epoch,
+          resumed_from_step=saved_step, routes_per_step=repr(dict(routes)),
+          launches=repr(counts))
+    check_stager(cfg, dev)
+    calls = capture_patch_inputs(cfg, state, dev)
+    timed = patch_kernel_cases(calls, knn, scatter)
+    assert_workspace_zero("patch kernel cases")
+    del calls, state, res, res2
+    card_vs_cpu_patch_step(cfg, dev)
+    return counts, len(losses), timed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -831,6 +1115,7 @@ def main() -> int:
     from instant_nvr_tpu_torch.eval.runner import AutoBudgetRenderer, eval_chunk
     from instant_nvr_tpu_torch.ops import knn, scatter
     from instant_nvr_tpu_torch import cuda_build, run
+    from instant_nvr_tpu_torch.utils import native
 
     # 1. device
     dev = run.resolve_device("cuda")            # also turns TF32 off
@@ -851,6 +1136,11 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         phase("build", kernel=name, ptxas=repr(ptxas))
     phase("build", kernels=len(cuda_build.KERNELS),
+          seconds=f"{time.perf_counter() - t0:.2f}")
+    # the data layer's native host library (g++), before any loader runs
+    t0 = time.perf_counter()
+    native.load()
+    phase("build", host_library=os.path.relpath(native.library_path(), HERE),
           seconds=f"{time.perf_counter() - t0:.2f}")
 
     # 3. kernel vs plain, at the render and train paths' shapes
@@ -926,6 +1216,12 @@ def main() -> int:
               for k, v in selfcheck(dev, knn, scatter, routes).items()}
     assert_workspace_zero("self-check")
 
+    # 8. the patch slice: the training run on the fake subject
+    patch_launches, patch_steps, patch_timed = patch_slice(dev, knn, scatter)
+    counts = {k: counts[k] + patch_launches[k] for k in counts}
+    # whole: check_patch_run held every count to the routing times the steps
+    per_step = {k: v // patch_steps for k, v in patch_launches.items()}
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -956,6 +1252,21 @@ def main() -> int:
                  train_records_plain_ms=rec[2], train_records_library_ms=rec[3],
                  train_records_library_device_ms=rec[6])
         rows.append(r)
+    # the patch path: launches a step, and each kernel on one patch step's
+    # own inputs
+    for r in rows:
+        r["patch_step_launches"] = per_step[r["name"]]
+        if r["name"] == "knn_blend":
+            err, ms, pms, bnd, dev_ms = patch_timed["knn_blend"]
+            lib_ms = None
+        elif r["name"] in patch_timed:
+            err, ms, pms, lib_ms, bnd, dev_ms, _ = patch_timed[r["name"]]
+        else:
+            continue
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.update(patch_shape_ms=ms, patch_shape_device_ms=dev_ms,
+                 patch_shape_plain_ms=pms, patch_shape_library_ms=lib_ms,
+                 patch_shape_bound_ms=bnd[0], patch_shape_bound_by=bnd[1])
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

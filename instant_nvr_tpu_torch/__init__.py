@@ -6,9 +6,10 @@ The JAX package beside it stays the reference.  This package imports
 and keeps its tensor layouts at every public function, so the parity tests
 (``tests/test_torch_*.py``) compare like with like.
 
-Ported: the render path (``python -m instant_nvr_tpu_torch.run``), the MSE
-train step (``python -m instant_nvr_tpu_torch.train_net``) and the on-card
-self-check (``tools/cuda_selfcheck``).  Every TPU kernel of the JAX package
+Ported: the render path (``python -m instant_nvr_tpu_torch.run``), the
+training run with its data layer, loop and patch-LPIPS step (``python -m
+instant_nvr_tpu_torch.train_net``) and the on-card self-check
+(``tools/cuda_selfcheck``).  Every TPU kernel of the JAX package
 is a hand-written CUDA kernel under ``csrc/``.
 """
 import torch as _torch

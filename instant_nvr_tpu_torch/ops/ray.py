@@ -28,6 +28,21 @@ def get_rays_np(H: int, W: int, K: np.ndarray, R: np.ndarray, T: np.ndarray):
     return rays_o, rays_d
 
 
+def rays_for_coords_np(K: np.ndarray, R: np.ndarray, T: np.ndarray,
+                       coords: np.ndarray):
+    """Rays for an (n, 2) list of (row, col) pixels only: the math of
+    :func:`get_rays_np` on the sampled pixels (the plain version of the
+    native ``ray_dirs``)."""
+    rays_o = -np.dot(R.T, T).ravel()
+    xy1 = np.stack([coords[:, 1], coords[:, 0], np.ones(len(coords))],
+                   axis=1).astype(np.float64)
+    pixel_world = np.dot(np.dot(xy1, np.linalg.inv(K).T) - T.ravel(), R)
+    d = pixel_world - rays_o[None]
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(rays_o, d.shape)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
 def get_near_far_np(bounds: np.ndarray, ray_o: np.ndarray, ray_d: np.ndarray):
     """AABB slab test -> (near, far, mask_at_box); near/far for hits only."""
     norm_d = np.linalg.norm(ray_d, axis=-1, keepdims=True)

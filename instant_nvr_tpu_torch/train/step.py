@@ -5,20 +5,24 @@ One step: render (``render_rays(train=True)``) -> losses -> ``backward()``
 the scatter kernels of ``ops/scatter.py`` (routing in ``ops/hashgrid.py``);
 :func:`table_grad_launches` says how many of each one step launches.
 
-Not ported yet (ROADMAP.md, queue A item 9): the patch losses
-(``patch_loss_fn``) and ``remat``; both raise.
+In patch mode (``use_lpips`` and the other patch losses) the image-space
+``patch_loss_fn`` (``train/loop.py:make_patch_loss_fn``) replaces the
+image MSE.  ``remat`` recomputes the render forward in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations.
 """
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import inb
 from ..ops import hashgrid
 from ..ops.math import safe_norm
-from ..renderer.inb_renderer import RenderSpec, pair_reg_loss, render_rays
+from ..renderer.inb_renderer import (RenderSpec, pair_budget, pair_reg_loss,
+                                     render_rays)
 from .crit import elastic_crit, normal_crit, sdf_mask_crit
 from .state import TrainState
 
@@ -105,21 +109,54 @@ def variant_losses(ret: Dict, batch: Dict, lw: LossWeights, step: int
     return loss, stats
 
 
+PatchLossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]],
+                      torch.Tensor]
+
+
+def draw_render(mspec: inb.ModelSpec, rspec: RenderSpec, n_rays: int,
+                generator: torch.Generator | None,
+                device: torch.device) -> Dict[str, torch.Tensor]:
+    """The random draws of one ``render_rays(train=True)`` on ``n_rays``
+    rays, as its ``draws=``: the depth jitter (R, S) and the pair
+    regularizer's neighbour offsets (B, 3)."""
+    S = rspec.n_samples
+    t_rand = torch.rand((n_rays, S), generator=generator, device=device)
+    noise = torch.rand((pair_budget(mspec, rspec, n_rays * S), 3),
+                       generator=generator, device=device)
+    return {"t_rand": t_rand, "pair_noise": (noise - 0.5) * rspec.pair_range}
+
+
 def compute_losses(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
                    model: inb.InbModel, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator | None = None,
                    draws: Dict[str, torch.Tensor] | None = None,
-                   step: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   step: int = 0,
+                   patch_loss_fn: Optional[PatchLossFn] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total loss, stats).  ``batch['rgb']`` is the ground truth per ray.
 
-    Image MSE (masked by ``ray_mask`` when present), pair regularizer x
+    Image MSE (masked by ``ray_mask`` when present), or in patch mode
+    ``patch_loss_fn(ret, batch)`` in its place; pair regularizer x
     ``lw.pair``, distortion x ``batch['reg_dist_weight']``, residual
     magnitude x ``lw.resd``, the gated freespace/occupancy BCE terms and
     the variant terms.  Stats carry each term, ``psnr``, the overflow
     telemetry, ``loss`` and the per-ray L1 ``ray_error``.
+
+    Under ``lw.remat`` the render runs inside ``torch.utils.checkpoint``.
+    The checkpoint replays only the global RNG, not ``generator``, so the
+    draws are made before it and passed in: the recomputed forward sees
+    the same jitter and pair noise.
     """
-    ret = render_rays(mspec, rspec, model, batch, train=True,
-                      generator=generator, draws=draws)
+    if lw.remat:
+        if draws is None:
+            draws = draw_render(mspec, rspec, batch["ray_o"].shape[0],
+                                generator, batch["ray_o"].device)
+        ret = checkpoint(lambda b, d: render_rays(mspec, rspec, model, b,
+                                                  train=True, draws=d),
+                         batch, draws, use_reentrant=False)
+    else:
+        ret = render_rays(mspec, rspec, model, batch, train=True,
+                          generator=generator, draws=draws)
     stats: Dict[str, torch.Tensor] = {}
 
     rgb_gt = batch["rgb"]
@@ -132,7 +169,11 @@ def compute_losses(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
         img_loss = torch.mean(diff2)
     stats["img_loss"] = img_loss
     stats["psnr"] = -10.0 * torch.log10(img_loss)
-    loss = img_loss
+    if lw.use_patch and patch_loss_fn is not None:
+        loss = patch_loss_fn(ret, batch)
+        stats["patch_loss"] = loss
+    else:
+        loss = img_loss
 
     if lw.use_pair and "pair_resd0" in ret:
         pl = pair_reg_loss(ret["pair_resd0"], ret["pair_resd1"], ret["pair_valid"])
@@ -177,22 +218,21 @@ def compute_losses(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
 
 
 def make_train_step(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
-                    patch_loss_fn=None):
+                    patch_loss_fn: Optional[PatchLossFn] = None):
     """The train step ``(state, batch, generator=None, draws=None) ->
     (state, stats)``: zero the grads, forward, backward, one optimizer
     update at the schedule's rate for ``state.step``; the state is updated
-    in place.  Stats are detached tensors (nothing waits for the device)."""
-    if patch_loss_fn is not None or lw.remat:
-        raise NotImplementedError(
-            "patch losses (patch_loss_fn) and remat are not ported yet "
-            "(ROADMAP.md, queue A item 9, 'Patch mode')")
+    in place.  Stats are detached tensors (nothing waits for the device).
+    ``patch_loss_fn`` is the patch-mode image loss (used when
+    ``lw.use_patch``)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator | None = None,
                    draws: Dict[str, torch.Tensor] | None = None):
         state.optimizer.zero_grad(set_to_none=True)
         loss, stats = compute_losses(mspec, rspec, lw, state.model, batch,
-                                     generator, draws, step=state.step)
+                                     generator, draws, step=state.step,
+                                     patch_loss_fn=patch_loss_fn)
         loss.backward()
         state.set_lr()
         state.optimizer.step()

@@ -1,16 +1,26 @@
-"""Train the port on the synthetic batch (the MSE step of ``bench.py``).
+"""Train the port: the training run of the repo's ``train_net.py``.
 
-    python -m instant_nvr_tpu_torch.train_net --cfg_file configs/inb/inb_377.yaml --steps 100
+    python -m instant_nvr_tpu_torch.train_net --cfg_file configs/inb/inb_fake.yaml
+    python -m instant_nvr_tpu_torch.train_net --cfg_file configs/inb/inb_fake.yaml \
+        --device cpu --tiny ep_iter 2 train.epoch 2 use_lpips True patch_size 8
+
+runs ``train/loop.py:train`` on the config's dataset: stages, prefetching,
+patch-LPIPS steps where the config asks for them, a checkpoint per
+``save_latest_ep`` epochs and resume from the last one (``--no_resume``
+starts fresh).  ``--dry_run`` prints the parameter inventory,
+``--profile`` traces the steps of ``--profile_window`` into
+``record_dir/profile``; ``--test`` (evaluation after training) is not
+ported yet and raises.
+
+    python -m instant_nvr_tpu_torch.train_net --synthetic --steps 100
     python -m instant_nvr_tpu_torch.train_net --device cpu --tiny --steps 3
 
-Builds the config's model from random weights (``--seed``) and trains it on
-one fixed batch of ``N_rand`` rays from the synthetic scene that
-``bench.py`` uses (1,200 vertices, a 32^3 pose volume, a 128x128 view),
-printing loss, psnr and milliseconds per step.  ``--tiny`` narrows the
-model and the scene to the widths of the CPU tests
-(``__graft_entry__._flagship(tiny=True)``).  The device defaults to
-``cuda`` and a missing card is an error.  Stages, the data loader and
-checkpoints come with a later slice (ROADMAP.md, queue A item 10).
+trains instead on one fixed batch of ``N_rand`` rays from the synthetic
+scene that ``bench.py`` uses (1,200 vertices, a 32^3 pose volume, a
+128x128 view), printing loss, psnr and milliseconds per step (``--steps``
+selects this run).  ``--tiny`` narrows the model (and the synthetic scene)
+to the widths of the CPU tests (``__graft_entry__._flagship(tiny=True)``).
+The device defaults to ``cuda`` and a missing card is an error.
 """
 from __future__ import annotations
 
@@ -71,11 +81,24 @@ def build_trainer(cfg, device: torch.device, seed: int = 0,
 def parse_args(argv=None):
     p = argparse.ArgumentParser(prog="python -m instant_nvr_tpu_torch.train_net")
     p.add_argument("--cfg_file", default="configs/inb/inb_377.yaml")
-    p.add_argument("--steps", type=int, default=100)
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true",
-                   help="narrow widths and a small scene (CPU runs)")
+                   help="narrow widths (and a small synthetic scene): CPU runs")
+    p.add_argument("--no_resume", action="store_true")
+    p.add_argument("--dry_run", action="store_true",
+                   help="print the parameter inventory and exit")
+    p.add_argument("--profile", action="store_true",
+                   help="trace the steps of --profile_window with torch.profiler")
+    p.add_argument("--profile_window", default="20:36",
+                   help="step window 'start:stop' for --profile")
+    p.add_argument("--test", action="store_true",
+                   help="evaluate after training (not ported yet)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on the synthetic batch instead of the dataset")
+    p.add_argument("--steps", type=int, default=None,
+                   help="steps of the synthetic run (implies --synthetic; "
+                        "default 100)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -84,13 +107,39 @@ def main(argv=None) -> None:
     from .config import make_cfg
     from .run import resolve_device
     args = parse_args(argv)
+    if args.test:
+        raise NotImplementedError("--test: evaluation after training is not "
+                                  "ported yet (ROADMAP.md, queue A item 11)")
     cfg = make_cfg(args.cfg_file, args.opts)
-    if args.tiny:
-        cfg = cfg.merged(TINY)
+    if args.tiny:   # the command line's opts still win over the tiny widths
+        cfg = cfg.merged(TINY).with_overrides(args.opts)
+    if args.dry_run:
+        from .models import inb
+        model = inb.InbModel(inb.build_model_spec(cfg), device="meta")
+        total = 0
+        for name, p in model.named_parameters():
+            total += p.numel()
+            print(f"{name:60s} {str(tuple(p.shape)):>20s} {p.numel():>12,d}")
+        print(f"total parameters: {total:,d}")
+        return
     device = resolve_device(args.device)
-    t = build_trainer(cfg, device, args.seed, args.tiny)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    for i in range(args.steps):
+    if args.synthetic or args.steps is not None:
+        run_synthetic(cfg, device, 100 if args.steps is None else args.steps,
+                      args.seed, args.tiny)
+        return
+    from .train.loop import train
+    window = (tuple(int(x) for x in args.profile_window.split(":"))
+              if args.profile else None)
+    train(cfg, device, resume=not args.no_resume, profile_window=window,
+          seed=args.seed)
+
+
+def run_synthetic(cfg, device: torch.device, steps: int, seed: int,
+                  tiny: bool) -> None:
+    """``steps`` MSE steps on the fixed synthetic batch, one line a step."""
+    t = build_trainer(cfg, device, seed, tiny)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for i in range(steps):
         t0 = time.perf_counter()
         _, stats = t.step(t.state, t.batch, generator=gen)
         loss, psnr = float(stats["loss"]), float(stats["psnr"])   # waits

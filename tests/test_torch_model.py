@@ -158,8 +158,9 @@ def test_render_rays_full_width_matches_jax():
 
 def test_render_rays_train_not_ported():
     """render_rays(train=True) is ported now (held against JAX in
-    tests/test_torch_train.py); what the train path still lacks, patch mode
-    and remat, raises naming ROADMAP."""
+    tests/test_torch_train.py), and so are patch mode and remat
+    (tests/test_torch_patch.py): the remat losses equal the eager ones on
+    the same draws."""
     from instant_nvr_tpu_torch.train import step as tstep
     c = tiny("float32")
     rspec = rend.RenderSpec(n_samples=8)
@@ -168,8 +169,15 @@ def test_render_rays_train_not_ported():
                                generator=torch.Generator().manual_seed(0))
     assert {"resd", "pair_resd0", "pair_resd1", "pair_valid",
             "reg_distortion"} <= set(out)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_train_step(c.mspec, rspec, tstep.LossWeights(remat=True))
+    draws = tstep.draw_render(c.mspec, rspec, c.batch["ray_o"].shape[0],
+                              torch.Generator().manual_seed(0), torch.device("cpu"))
+    lw = tstep.LossWeights()
+    with torch.no_grad():
+        eager, _ = tstep.compute_losses(c.mspec, rspec, lw, c.model, c.batch,
+                                        draws=draws)
+        remat, _ = tstep.compute_losses(c.mspec, rspec, lw._replace(remat=True),
+                                        c.model, c.batch, draws=draws)
+    assert torch.isfinite(eager) and torch.equal(eager, remat)
 
 
 # -- chunked eval renderer ------------------------------------------------------

@@ -698,10 +698,9 @@ def test_schedules_match_jax():
 
 def test_unported_training_options_raise():
     c = tiny("bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_train_step(c.mspec, c.rspec, c.lw, patch_loss_fn=lambda r, b: 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep.make_train_step(c.mspec, c.rspec, c.lw._replace(remat=True))
+    # patch losses and remat are ported (tests/test_torch_patch.py)
+    tstep.make_train_step(c.mspec, c.rspec, c.lw, patch_loss_fn=lambda r, b: 0)
+    tstep.make_train_step(c.mspec, c.rspec, c.lw._replace(remat=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tstate.make_optimizer(c.cfg.merged({"train": {"moment_dtype": "bfloat16"}}),
                               c.model())
