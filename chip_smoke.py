@@ -58,14 +58,35 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      window and peak memory; checks the stager's copies against the host
      items; times each kernel on one patch step's own inputs; holds one
      patch step (``patch_size`` 16) card vs CPU.
+  9. eval slice, on phase 8's checkpoint, through the functions of ``python
+     -m instant_nvr_tpu_torch.run --type evaluate|prune|tmesh|tdmesh|bullet``:
+     evaluates the test split (view 2 x 4 frames at 512^2, the budgets
+     raised on the first frame and saved), printing each frame's render and
+     metrics ms, the warm median, rays, chunks, peak memory, PSNR, SSIM and
+     LPIPS (recorded, not gated); loads the weights without ``run.load``'s
+     random-init fallback; checks one ``knn_blend`` launch per chunk
+     rendered and no other kernel, ``eval_budgets.json``, and a second
+     evaluation from it that raises nothing, where each frame's launches,
+     read from the counter around its render, equal its chunks; holds one 32^2 test item card
+     vs CPU (rgb at phase 4b's tolerance, PSNR within 0.01 dB); profiles one
+     warm 512^2 item (``tools/profile_eval.py``: device ms, busy share, top
+     kernels) and times ``knn_blend`` on one of its chunks' own inputs;
+     times the res-128 occupancy cube on the card and marching tetrahedra
+     on the host, writes ``latest.npy`` and the two meshes, holds the res-32
+     cube card vs CPU (atol 1e-5); renders 4 bullet-time views at 512^2
+     (PNGs; an mp4 only where ffmpeg exists); then trains a fourth epoch
+     with ``eval_ep``, ``vis_ep`` and ``prune_using_geo`` at 1 and checks
+     their artifacts, printing the epoch's steps, cube and validation time.
 Then one JSON line of kernel numbers (launches: the render, train,
-self-check and patch phases together; a KNN row's times are the render
+self-check, patch and evaluate phases together; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
 row also has ``patch_step_launches``, the patch runs' launches over their
 steps, and a row on the patch path its times on the patch step's own
-inputs as ``patch_shape_*``),
+inputs as ``patch_shape_*``; ``knn_blend`` also has its launches per eval
+frame as read in the second evaluation, ``eval_frame_launches``, and its times on one eval chunk's own
+inputs as ``eval_shape_*``),
 the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -624,6 +645,12 @@ def reset_counts(knn, scatter):
     scatter.exact_scatter_add.calls = 0
 
 
+def launch_counts(knn, scatter):
+    return {"knn_blend": knn.knn_blend.launches, "knn_topk": knn.knn_topk.launches,
+            "segmented_scatter_add": scatter.segmented_scatter_add.launches,
+            "onehot_scatter_add": scatter.onehot_scatter_add.launches}
+
+
 def profile_steps(trainer, gen):
     """One torch.profiler window of PROFILE_STEPS steps -> (busy share, top
     kernels, top ops by the device time of the kernels they launch), or
@@ -818,9 +845,7 @@ def selfcheck(dev, knn, scatter, routes):
     from instant_nvr_tpu_torch.tools import cuda_selfcheck
     reset_counts(knn, scatter)
     checks = cuda_selfcheck.run_checks(dev)
-    got = {"knn_blend": knn.knn_blend.launches, "knn_topk": knn.knn_topk.launches,
-           "segmented_scatter_add": scatter.segmented_scatter_add.launches,
-           "onehot_scatter_add": scatter.onehot_scatter_add.launches}
+    got = launch_counts(knn, scatter)
     for c in checks:
         phase("selfcheck", check=c.tag, ok=c.ok, line=repr(c.line))
     failures = [c.failure for c in checks if not c.ok]
@@ -868,9 +893,7 @@ def check_patch_run(label, res, first_epoch, routes, knn, scatter):
     routing of the steps taken."""
     import numpy as np
     steps = len(res.losses)
-    got = {"knn_blend": knn.knn_blend.launches, "knn_topk": knn.knn_topk.launches,
-           "segmented_scatter_add": scatter.segmented_scatter_add.launches,
-           "onehot_scatter_add": scatter.onehot_scatter_add.launches}
+    got = launch_counts(knn, scatter)
     if not (steps and np.isfinite(res.losses).all()):
         raise AssertionError(f"{label}: losses {res.losses}")
     if [e.epoch for e in res.epochs] != list(range(first_epoch, first_epoch
@@ -1099,6 +1122,245 @@ def patch_slice(dev, knn, scatter):
     return counts, len(losses), timed
 
 
+def capture_eval_chunk(renderer, model, item):
+    """The ``knn_blend`` inputs of the first chunk of one render of
+    ``item``: (query, part_pts, part_pbw, lengths)."""
+    import torch
+    from instant_nvr_tpu_torch.models import inb
+    blend, first = inb.knn_blend, []
+
+    def spy(query, part_pts, part_pbw, lengths, **kw):
+        if not first:
+            first.append((query.clone(), part_pts, part_pbw, lengths))
+        return blend(query, part_pts, part_pbw, lengths, **kw)
+    inb.knn_blend = spy
+    try:
+        renderer(model, item)
+        torch.cuda.synchronize()
+    finally:
+        inb.knn_blend = blend
+    return first[0]
+
+
+def spy_frame_launches(knn):
+    """Wrap ``AutoBudgetRenderer.__call__`` so that each render appends the
+    change of ``knn_blend``'s launch counter across it to the returned
+    list; returns (that list, a function that removes the wrapper)."""
+    from instant_nvr_tpu_torch.eval import runner
+    call, seen = runner.AutoBudgetRenderer.__call__, []
+
+    def spy(self, *args, **kw):
+        before = knn.knn_blend.launches
+        out = call(self, *args, **kw)
+        seen.append(knn.knn_blend.launches - before)
+        return out
+    runner.AutoBudgetRenderer.__call__ = spy
+    return seen, lambda: setattr(runner.AutoBudgetRenderer, "__call__", call)
+
+
+def check_eval_run(label, r, counts):
+    """The launches of an evaluate run: one ``knn_blend`` per chunk
+    rendered, no other kernel."""
+    want = {"knn_blend": r["chunks_rendered"], "knn_topk": 0,
+            "segmented_scatter_add": 0, "onehot_scatter_add": 0}
+    if counts != want or not r["chunks_rendered"]:
+        raise AssertionError(f"{label}: launches {counts} != {want}")
+
+
+def eval_slice(dev, knn, scatter):
+    """Phase 9 (see the module doc) on phase 8's checkpoint.  Returns (the
+    launch counts of the evaluate run, ``knn_blend``'s eval-chunk case and
+    its launches per eval frame)."""
+    import glob
+    import shutil
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import run
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.eval import evaluator, mesh, runner
+    from instant_nvr_tpu_torch.tools import profile_eval
+    from instant_nvr_tpu_torch.train import checkpoint, loop
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    root = os.path.join(HERE, "data", "fake_zju_smoke")
+    exp = os.path.join(HERE, "exps", "chip_smoke_patch")
+    # the test split (view 2) at 512^2, every frame
+    cfg = patch_cfg(root, exp, epochs=3, eval_ratio=1.0,
+                    test={"frame_sampler_interval": 1}).replace(eval=True)
+    budgets = runner.budgets_path(cfg)
+    for path in glob.glob(budgets + "*"):
+        os.remove(path)
+    # phase 8's weights, loaded without run.load's random-init fallback:
+    # raises when the checkpoint is missing
+    mspec, rspec, model = run.build(cfg, dev, seed=0)
+    checkpoint.load_weights(cfg.trained_model_dir, model)
+
+    # evaluate: every test item, the budgets raised on the first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(knn, scatter)
+    seen, unspy = spy_frame_launches(knn)
+    try:
+        r = run.run_evaluate(cfg, dev, seed=0)
+    finally:
+        unspy()
+    counts = launch_counts(knn, scatter)
+    check_eval_run("evaluate", r, counts)
+    peak = torch.cuda.max_memory_allocated()
+    if not os.path.isfile(budgets):
+        raise AssertionError(f"no {budgets} after the evaluation")
+    with open(budgets) as f:
+        raised = f.read()
+    n_items = len(r["items"])
+    rays = [it[1] for it in r["items"]]
+    render_ms = [1000 * it[3] for it in r["items"]]
+    metrics_ms = [1000 * it[4] for it in r["items"]]
+    chunk = runner.eval_chunk(cfg)
+    per_frame = [runner.padded_chunks(n, chunk) for n in rays]
+    # each frame's launches as read from the counter: at least one a chunk,
+    # more on a frame whose budgets were raised and rendered again
+    if len(seen) != n_items or sum(seen) != counts["knn_blend"] \
+            or any(s < p for s, p in zip(seen, per_frame)):
+        raise AssertionError(f"evaluate: knn_blend launches per frame {seen}, "
+                             f"chunks per frame {per_frame}")
+    warm = float(np.median(render_ms[1:]))
+    saved = np.load(os.path.join(cfg.result_dir, "metrics.npy"), allow_pickle=True).item()
+    pngs = glob.glob(os.path.join(cfg.result_dir, "comparison", "*.png"))
+    if n_items != 4 or len(pngs) != 3 * n_items or len(saved["psnr"]) != n_items \
+            or not np.isfinite([r[k] for k in ("psnr", "ssim", "lpips")]).all():
+        raise AssertionError(f"evaluate: {n_items} items, {len(pngs)} PNGs, "
+                             f"metrics {r}")
+    phase("eval", card=repr(nvidia_smi()), config="inb_fake (inb_377 widths), 3 epochs",
+          items=n_items, side=512, rays_per_frame=rays, chunk=chunk,
+          chunks_per_frame=per_frame, chunks_rendered=r["chunks_rendered"],
+          knn_launches=counts["knn_blend"], knn_launches_per_frame=seen,
+          render_ms=[f"{t:.1f}" for t in render_ms],
+          metrics_ms=[f"{t:.1f}" for t in metrics_ms],
+          warm_median_render_ms=f"{warm:.1f}",
+          warm_ms_per_item=f"{float(np.median(np.add(render_ms, metrics_ms)[1:])):.1f}",
+          rays_per_s=f"{float(np.median(rays[1:])) / (warm / 1000):.0f}",
+          peak_mem_GB=f"{peak / 1e9:.3f}", psnr=f"{r['psnr']:.4f}",
+          ssim=f"{r['ssim']:.4f}", lpips=f"{r['lpips']:.4f}",
+          budgets=repr(raised))
+    # a second evaluation starts from the saved budgets: no raise, so each
+    # frame launches knn_blend exactly once a chunk
+    reset_counts(knn, scatter)
+    frame_launches, unspy = spy_frame_launches(knn)
+    try:
+        r2 = runner.evaluate_dataset(cfg, mspec, rspec, model, max_items=2,
+                                     save_images=False)
+    finally:
+        unspy()
+    check_eval_run("evaluate again", r2, launch_counts(knn, scatter))
+    want = [runner.padded_chunks(it[1], chunk) for it in r2["items"]]
+    if frame_launches != want:
+        raise AssertionError(f"evaluate again: knn_blend launches per frame "
+                             f"{frame_launches} != chunks {want}: a budget was "
+                             f"raised again")
+    phase("eval-again", items=len(r2["items"]), chunks_rendered=r2["chunks_rendered"],
+          knn_launches_per_frame=frame_launches,
+          render_ms=[f"{1000 * it[3]:.1f}" for it in r2["items"]], check="no raise")
+
+    # eval card vs CPU: one test item at 32^2, same weights, plain versions
+    # on the CPU
+    small = cfg.merged({"eval_ratio": 1 / 16})
+    item = TPoseDataset(small, "test").get_item(0)
+    model_cpu = copy.deepcopy(model).cpu()
+    out, psnr = [], []
+    for d, m in ((dev, model), (torch.device("cpu"), model_cpu)):
+        o = runner.AutoBudgetRenderer(mspec, rspec, chunk)(m, item)
+        ev = evaluator.Evaluator(device=d)
+        ev.evaluate(o["rgb_map"], item["rgb"], item["mask_at_box"], int(item["H"]),
+                    int(item["W"]))
+        out.append(o["rgb_map"])
+        psnr.append(ev.psnr[0])
+    diff = np.abs(out[0] - out[1])
+    phase("eval-cuda-vs-cpu", rays=len(diff), max_abs_diff=f"{diff.max():.3e}",
+          psnr_card=f"{psnr[0]:.5f}", psnr_cpu=f"{psnr[1]:.5f}",
+          tol=repr("rgb rtol=atol=1e-3 (phase 4b); psnr 0.01 dB"))
+    np.testing.assert_allclose(out[0], out[1], rtol=1e-3, atol=1e-3)
+    if abs(psnr[0] - psnr[1]) > 0.01:
+        raise AssertionError(f"psnr card {psnr[0]} vs cpu {psnr[1]}")
+
+    # profile one warm 512^2 item; then knn_blend on one of its chunks
+    item = TPoseDataset(cfg, "test").get_item(0)
+    renderer = runner.AutoBudgetRenderer(mspec, rspec, chunk, persist_path=budgets)
+    prof = profile_eval.profile_item(renderer, model, item)
+    phase("eval-profile", rays=prof["rays"], warm_ms=f"{prof['warm_ms']:.1f}",
+          device_ms=fmt_ms(prof["device_ms"]),
+          device_busy=("not measured" if prof["busy"] is None else f"{prof['busy']:.3f}"),
+          top_kernels=repr([f"{n[:60]}:{ms:.2f}ms:x{c}" for n, ms, c in prof["top"]]))
+    eval_knn = knn_case("eval-chunk", capture_eval_chunk(renderer, model, item), knn)
+
+    # prune / tmesh / tdmesh: the cube on the card, the mesh on the host
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ, tb = mesh.occupancy_grid(cfg, mspec, model, item, False, res=128)
+    cube_ms = 1000 * (time.perf_counter() - t0)      # ends in a copy to the host
+    t0 = time.perf_counter()
+    verts, faces = mesh.marching_tetrahedra(occ, mesh.ISO)
+    mt_ms = 1000 * (time.perf_counter() - t0)
+    run.run_prune(cfg, dev, seed=0)
+    meshes = {d: run.run_tmesh(cfg, dev, 0, deformed=d) for d in (False, True)}
+    for path in (os.path.join(cfg.result_dir, "latest.npy"),
+                 os.path.join(cfg.result_dir, "tmesh", "latest.npy"),
+                 os.path.join(cfg.result_dir, "tdmesh", "latest.npy")):
+        c = np.load(path)
+        if c.shape != (128, 128, 128) or not np.isfinite(c).all() \
+                or c.min() < 0 or c.max() > 1:
+            raise AssertionError(f"{path}: {c.shape}, [{c.min()}, {c.max()}]")
+    small_occ = [mesh.occupancy_grid(cfg, mspec, m, item, False, res=32)[0]
+                 for m in (model, model_cpu)]
+    occ_diff = float(np.abs(small_occ[0] - small_occ[1]).max())
+    phase("mesh", res=128, occupancy_ms=f"{cube_ms:.1f}",
+          points_per_s=f"{128 ** 3 / (cube_ms / 1000):.0f}",
+          occupancy_range=f"[{occ.min():.4f},{occ.max():.4f}]",
+          marching_tetrahedra_host_ms=f"{mt_ms:.1f}",
+          tmesh_verts_faces=(len(meshes[False][0]), len(meshes[False][1])),
+          tdmesh_verts_faces=(len(meshes[True][0]), len(meshes[True][1])),
+          occupancy_card_vs_cpu_res32=f"{occ_diff:.3e}", tol="atol 1e-5")
+    if occ_diff > 1e-5:
+        raise AssertionError(f"occupancy card vs cpu differs by {occ_diff}")
+    del model_cpu, small_occ
+
+    # bullet: 4 orbit views at 512^2
+    t0 = time.perf_counter()
+    frames = run.run_bullet(cfg.merged({"render_views": 4}), dev, seed=0)
+    bullet_s = time.perf_counter() - t0
+    if len(frames) != 4 or not all(os.path.isfile(f) for f in frames):
+        raise AssertionError(f"bullet: frames {frames}")
+    phase("bullet", views=4, side=512, ms_per_view=f"{1000 * bullet_s / 4:.1f}",
+          pngs=len(frames), ffmpeg=shutil.which("ffmpeg") is not None,
+          mp4=os.path.isfile(os.path.join(cfg.result_dir, "novel_view.mp4")))
+
+    # the loop's cadence: a fourth epoch of 10 steps with validation,
+    # visualization and the pruning cube after it
+    latest = os.path.join(cfg.result_dir, "latest.npy")
+    before = os.path.getmtime(latest)
+    lcfg = patch_cfg(root, exp, epochs=4, eval_ep=1, vis_ep=1, prune_using_geo=True)
+    routes = table_grad_launches(mspec, rspec)
+    reset_counts(knn, scatter)
+    res = loop.train(lcfg, dev, resume=True)
+    got = launch_counts(knn, scatter)
+    steps = len(res.losses)
+    if [e.epoch for e in res.epochs] != [3] or not np.isfinite(res.losses).all() \
+            or got["segmented_scatter_add"] != steps * routes["segmented"] \
+            or got["onehot_scatter_add"] != steps * routes["onehot"] \
+            or got["knn_blend"] < steps + 2:
+        raise AssertionError(f"cadence epoch: {res.epochs}, launches {got}")
+    for path in (os.path.join(exp, "metrics_epoch3.npy"),
+                 os.path.join(exp, "comparison_epoch3", "frame0000_view0002.png")):
+        if not os.path.isfile(path):
+            raise AssertionError(f"no {path} after the cadence epoch")
+    if not os.path.getmtime(latest) > before:
+        raise AssertionError(f"{latest} was not rewritten")
+    e = res.epochs[0]
+    phase("cadence", epoch=e.epoch, steps=e.steps, steps_s=f"{e.wall_s:.3f}",
+          cube_s=f"{e.cube_s:.3f}", validation_and_vis_s=f"{e.eval_s:.3f}",
+          launches=repr(got))
+    assert_workspace_zero("eval slice")
+    return counts, eval_knn, frame_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1222,6 +1484,12 @@ def main() -> int:
     # whole: check_patch_run held every count to the routing times the steps
     per_step = {k: v // patch_steps for k, v in patch_launches.items()}
 
+    # 9. the eval slice on phase 8's checkpoint
+    t0 = time.perf_counter()
+    eval_launches, eval_knn, eval_per_frame = eval_slice(dev, knn, scatter)
+    phase("eval-slice", seconds=f"{time.perf_counter() - t0:.1f}")
+    counts = {k: counts[k] + eval_launches[k] for k in counts}
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -1267,6 +1535,14 @@ def main() -> int:
         r.update(patch_shape_ms=ms, patch_shape_device_ms=dev_ms,
                  patch_shape_plain_ms=pms, patch_shape_library_ms=lib_ms,
                  patch_shape_bound_ms=bnd[0], patch_shape_bound_by=bnd[1])
+        if r["name"] == "knn_blend":
+            # the eval path: launches per 512^2 eval frame (read from the
+            # counter), and the kernel on one eval chunk's own inputs
+            err, ms, pms, bnd, dev_ms = eval_knn
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r.update(eval_frame_launches=eval_per_frame, eval_shape_ms=ms,
+                     eval_shape_device_ms=dev_ms, eval_shape_plain_ms=pms,
+                     eval_shape_bound_ms=bnd[0], eval_shape_bound_by=bnd[1])
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,31 @@
-"""Full-image rendering in ray chunks (port of the rendering half of
-``instant_nvr_tpu/eval/runner.py``).
+"""Full-image evaluation: chunked rendering and metric accumulation (port
+of ``instant_nvr_tpu/eval/runner.py``).
 
 The JAX version maps the chunks inside one jit; here a Python loop renders
 them one after another on the device and gathers the telemetry on the
 device, so a frame waits for the device once, at the end.  Padding is the
 JAX version's as it is (a power-of-two chunk count, padded by wrapping the
 real rays), so the worst-chunk telemetry, and with it the budgets, match.
+The port runs in one process: the JAX version's per-process item shards
+and the metrics' allgather (``shard_indices``, ``_allgather_metrics``) are
+not ported (ROADMAP.md A12).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+import glob
+import json
+import os
+import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..datasets.samplers import FrameSampler
+from ..datasets.tpose_dataset import TPoseDataset
 from ..models import inb
 from ..renderer.inb_renderer import TELEMETRY_KEYS, RenderSpec, render_rays
+from .evaluator import Evaluator
 
 RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 MAP_KEYS = ("rgb_map", "acc_map")
@@ -115,18 +125,40 @@ class AutoBudgetRenderer:
     image, and on any overflow raises the budgets to the measured demand and
     renders again, so the image does not depend on the training budgets.
     ``chunks_rendered`` counts every chunk rendered, re-renders included.
-    (The JAX version can also persist raised budgets to a file; that option
-    comes with the evaluator.)
+
+    Raised budgets are written to ``persist_path`` (``eval_budgets.json``
+    in the model directory, the JAX package's keys) and merged back, with
+    any ``persist_path*`` sidecar, when a later renderer starts, so an eval
+    pays a raise once.
     """
 
     def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, chunk: int,
-                 max_raises: int = 4):
+                 max_raises: int = 4, persist_path: Optional[str] = None):
+        self.persist_path = persist_path
+        if persist_path:
+            for path in sorted(glob.glob(persist_path + "*")):
+                with open(path) as f:
+                    saved = json.load(f)
+                mspec = merge_budgets(mspec, saved["cull_frac"],
+                                      saved["part_frac"], saved["scales"])
+                print(f"eval: loaded raised budgets from {path} "
+                      f"(cull_frac={mspec.cull_frac:.3f} "
+                      f"part_frac={mspec.part_frac:.3f})")
         self.mspec = mspec
         self.rspec = rspec
         self.chunk = chunk
         self.max_raises = max_raises
         self.chunks_rendered = 0
         self.render_fn = make_chunked_renderer(mspec, rspec, chunk)
+
+    def _save(self) -> None:
+        if not self.persist_path:
+            return
+        os.makedirs(os.path.dirname(self.persist_path), exist_ok=True)
+        with open(self.persist_path, "w") as f:
+            json.dump({"cull_frac": self.mspec.cull_frac,
+                       "part_frac": self.mspec.part_frac,
+                       "scales": list(self.mspec.part_budget_scales)}, f)
 
     def _render(self, model, item):
         out = render_full_image(self.render_fn, model, item, META_KEYS,
@@ -142,6 +174,7 @@ class AutoBudgetRenderer:
                 return out
             self.mspec = raise_budgets(self.mspec, out["cull_need"],
                                        out["part_need"])
+            self._save()
             print(f"eval: budget overflow (cull {float(out['cull_overflow']):.4f}, "
                   f"part {float(out['part_overflow']):.4f}) -> raised to "
                   f"cull_frac={self.mspec.cull_frac:.3f} "
@@ -154,3 +187,51 @@ class AutoBudgetRenderer:
                   f"budget raises (cull {float(out['cull_overflow']):.4f}, "
                   f"part {float(out['part_overflow']):.4f})")
         return out
+
+
+def budgets_path(cfg) -> str:
+    return os.path.join(cfg.trained_model_dir, "eval_budgets.json")
+
+
+def evaluate_dataset(cfg, mspec: inb.ModelSpec, rspec: RenderSpec,
+                     model: inb.InbModel, split: str = "test", epoch: int = -1,
+                     max_items: Optional[int] = None,
+                     save_images: bool = True) -> Dict[str, float]:
+    """Render every item of ``split`` (one view set every
+    ``frame_sampler_interval`` frames, at most ``max_items``) on the
+    model's device, score it and summarize.  Returns the mean metrics (the
+    JAX version's dict) plus ``items``, each item's (index, rays, data s,
+    render s, metrics s), and ``chunks_rendered``."""
+    ds = TPoseDataset(cfg, split)
+    interval = cfg[split].get("frame_sampler_interval", 1) if split in cfg else 1
+    indices = list(FrameSampler(len(ds), ds.num_cams, interval))
+    if max_items:
+        indices = indices[:max_items]
+    renderer = AutoBudgetRenderer(mspec, rspec, eval_chunk(cfg),
+                                  persist_path=budgets_path(cfg))
+    evaluator = Evaluator(result_dir=cfg.result_dir,
+                          lpips_weights=cfg.get("lpips_weights", ""),
+                          save_images=save_images,
+                          eval_part=cfg.get("eval_part", ""),
+                          partnames=list(mspec.partnames),
+                          test_full=cfg.get("test_full", True),
+                          device=next(model.parameters()).device)
+    timings = []
+    for idx in indices:
+        t0 = time.time()
+        item = ds.get_item(idx)
+        t1 = time.time()
+        out = renderer(model, item)      # host arrays: the device is done
+        t2 = time.time()
+        evaluator.evaluate(out["rgb_map"], item["rgb"], item["mask_at_box"],
+                           int(item["H"]), int(item["W"]),
+                           frame_index=int(item["frame_index"]),
+                           view_index=int(item["cam_ind"]),
+                           sem_mask=item.get("sem_mask"), epoch=epoch)
+        t3 = time.time()
+        n = int(item["ray_o"].shape[0])
+        timings.append((idx, n, t1 - t0, t2 - t1, t3 - t2))
+        print(f"eval item {idx} ({n} rays): data {t1 - t0:.2f}s  "
+              f"render {t2 - t1:.2f}s  metrics {t3 - t2:.2f}s", flush=True)
+    return dict(evaluator.summarize(epoch=epoch), items=timings,
+                chunks_rendered=renderer.chunks_rendered)

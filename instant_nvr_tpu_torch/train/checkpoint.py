@@ -94,3 +94,18 @@ def load_checkpoint(model_dir: str, state, epoch=None) -> Optional[Dict]:
     state.step = int(payload["step"])
     return payload["meta"]
 
+
+def load_weights(model_dir: str, model, epoch=None):
+    """Weights-only restore into ``model`` in place (the reference's
+    ``load_network``): epoch ``epoch`` when >= 0, else ``latest``, else the
+    newest numbered epoch.  Reads only the ``model`` entry of ``state.pt``;
+    raises ``FileNotFoundError`` when there is no checkpoint and
+    ``load_state_dict``'s error for a checkpoint of another build."""
+    path = _find(model_dir, epoch)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint under {model_dir}")
+    device = next(model.parameters()).device
+    payload = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(payload["model"])
+    return model
+

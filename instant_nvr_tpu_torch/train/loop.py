@@ -13,13 +13,15 @@
     epoch, the error map of MSE-guided sampling;
   - a checkpoint every ``save_latest_ep`` (latest) and ``save_ep``
     (numbered) epochs, and resume at the epoch after the last saved one;
-  - a ``torch.profiler`` window over steps [lo, hi) with ``profile_window``.
-
-Not ported yet, and raising ``NotImplementedError`` before the first step
-of a run that would reach them (ROADMAP.md A11): validation every
-``eval_ep`` epochs, visualization every ``vis_ep`` epochs and the
-production side of ``prune_using_geo`` (the occupancy cube of
-``eval/mesh.py``).  The datasets' consumption side of it is ported.
+  - a ``torch.profiler`` window over steps [lo, hi) with ``profile_window``;
+  - after each epoch, with ``prune_using_geo``, the occupancy cube of
+    ``eval/mesh.py`` at res 128 from the epoch's last item, installed in
+    every dataset and written to ``result_dir/latest.npy``;
+  - validation on the val split (4 items) every ``eval_ep`` epochs and a
+    one-item visualization every ``vis_ep`` epochs
+    (``eval/runner.py:evaluate_dataset``; ``metrics_epoch{n}.npy`` and
+    ``comparison_epoch{n}/``), each skipped with a message when the split
+    has no data.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ from ..config import Config, dump_cfg
 from ..datasets.prefetch import DeviceStager, Prefetcher
 from ..datasets.samplers import IterationBasedSampler
 from ..datasets.tpose_dataset import TPoseDataset
+from ..eval.mesh import occupancy_grid
+from ..eval.runner import evaluate_dataset
 from ..models.budget import apply_auto_budget
 from ..models.lpips import perceptual_loss
 from ..utils import native
@@ -59,8 +63,6 @@ STATIC_KEYS = ("tbounds", "tuv", "tuv_sizes", "part_bounds")
 # frames whose device tensors device_batch keeps (the blend-weight volumes
 # are MBs each)
 MAX_CACHED_FRAMES = 16
-
-A11 = "ROADMAP.md, queue A item 11"
 
 
 def device_batch(item: Dict[str, np.ndarray], reg_dist_weight: float,
@@ -142,7 +144,9 @@ class EpochLog(NamedTuple):
     epoch: int
     steps: int
     data_s: float            # host time waiting on the prefetcher
-    wall_s: float            # the epoch's wall time
+    wall_s: float            # the epoch's wall time (its steps)
+    cube_s: float = 0.0      # the prune_using_geo cube after the steps
+    eval_s: float = 0.0      # validation and visualization after the steps
 
 
 class TrainResult(NamedTuple):
@@ -154,24 +158,6 @@ class TrainResult(NamedTuple):
     losses: List[float]
     epochs: List[EpochLog]
     profile: Optional[Dict]
-
-
-def _check_ported(cfg, first: int, last: int) -> None:
-    """Raise before training when epochs [first, last) would reach a part
-    of the loop that is not ported."""
-    if cfg.get("prune_using_geo", False):
-        raise NotImplementedError(
-            "prune_using_geo: the per-epoch occupancy cube (eval/mesh.py "
-            f"occupancy_grid) is not ported yet ({A11})")
-    for epoch in range(first, last):
-        if (epoch + 1) % cfg.eval_ep == 0:
-            raise NotImplementedError(
-                f"validation at epoch {epoch} (eval_ep {cfg.eval_ep}) is not "
-                f"ported yet ({A11}); raise eval_ep above train.epoch")
-        if cfg.get("vis_ep", 0) and (epoch + 1) % cfg.vis_ep == 0:
-            raise NotImplementedError(
-                f"visualization at epoch {epoch} (vis_ep {cfg.vis_ep}) is not "
-                f"ported yet ({A11}); raise vis_ep above train.epoch")
 
 
 def _device_seconds(events) -> Optional[float]:
@@ -222,7 +208,6 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
         meta = load_checkpoint(cfg.trained_model_dir, state)
         if meta is not None:
             begin_epoch = int(meta["epoch"]) + 1
-    _check_ported(cfg, begin_epoch, n_epochs)
     dump_cfg(cfg, cfg.result_dir)
     recorder = Recorder(cfg.record_dir, resume=resume)
     if meta is not None:
@@ -331,6 +316,8 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
             if (epoch + 1) % cfg.save_ep == 0:
                 save_checkpoint(cfg.trained_model_dir, epoch, state,
                                 recorder.state_dict(), latest=False)
+            epochs[-1] = epochs[-1]._replace(**_after_epoch(
+                cfg, mspec, rspec, state.model, epoch, item, datasets))
         if prof is not None:       # the window outlasted the run
             window = _stop_profile(prof, prof_t0, sync, steps_seen - profile_window[0])
             prof = None
@@ -367,6 +354,34 @@ def _profile_summary(prof, wall: float, steps: int, record_dir: str) -> Dict:
             "busy": None if dev is None else dev / wall}
 
 
+def _after_epoch(cfg: Config, mspec, rspec, model, epoch: int, item: Dict,
+                 datasets: Dict[float, TPoseDataset]) -> Dict[str, float]:
+    """The cadence after an epoch's steps and checkpoint: the geometry
+    cube, validation, visualization.  Returns their wall times."""
+    t0 = time.time()
+    if cfg.get("prune_using_geo", False):
+        occ, _ = occupancy_grid(cfg, mspec, model, item, deformed=False, res=128)
+        for dset in datasets.values():
+            dset.set_prune_geometry(occ)
+        os.makedirs(cfg.result_dir, exist_ok=True)
+        np.save(os.path.join(cfg.result_dir, "latest.npy"), occ)
+    t1 = time.time()
+    if (epoch + 1) % cfg.eval_ep == 0:
+        try:
+            validate(cfg, mspec, rspec, model, epoch)
+        except FileNotFoundError as e:
+            print(f"skipping val (no data): {e}")
+    if cfg.get("vis_ep", 0) and (epoch + 1) % cfg.vis_ep == 0:
+        try:
+            evaluate_dataset(cfg.replace(eval=True), mspec, rspec, model,
+                             split="val", epoch=epoch, max_items=1,
+                             save_images=True)
+        except FileNotFoundError as e:
+            print(f"skipping vis (no data): {e}")
+    return {"cube_s": t1 - t0, "eval_s": time.time() - t1}
+
+
 def validate(cfg: Config, mspec, rspec, model, epoch: int):
-    raise NotImplementedError(
-        f"validation (eval/runner.py evaluate_dataset) is not ported yet ({A11})")
+    """The val split's first 4 items, scored into ``metrics_epoch{epoch}.npy``."""
+    evaluate_dataset(cfg.replace(eval=True), mspec, rspec, model, split="val",
+                     epoch=epoch, max_items=4)

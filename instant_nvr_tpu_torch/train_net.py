@@ -9,8 +9,9 @@ patch-LPIPS steps where the config asks for them, a checkpoint per
 ``save_latest_ep`` epochs and resume from the last one (``--no_resume``
 starts fresh).  ``--dry_run`` prints the parameter inventory,
 ``--profile`` traces the steps of ``--profile_window`` into
-``record_dir/profile``; ``--test`` (evaluation after training) is not
-ported yet and raises.
+``record_dir/profile``; ``--test`` evaluates the test split after training
+(``eval/runner.py:evaluate_dataset``: ``result_dir/metrics.npy`` and the
+comparison PNGs).
 
     python -m instant_nvr_tpu_torch.train_net --synthetic --steps 100
     python -m instant_nvr_tpu_torch.train_net --device cpu --tiny --steps 3
@@ -93,7 +94,7 @@ def parse_args(argv=None):
     p.add_argument("--profile_window", default="20:36",
                    help="step window 'start:stop' for --profile")
     p.add_argument("--test", action="store_true",
-                   help="evaluate after training (not ported yet)")
+                   help="evaluate the test split after training")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic batch instead of the dataset")
     p.add_argument("--steps", type=int, default=None,
@@ -104,17 +105,14 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> None:
-    from .config import make_cfg
+    from .config import default_config, finalize, load_yaml_config
     from .run import resolve_device
     args = parse_args(argv)
-    if args.test:
-        raise NotImplementedError("--test: evaluation after training is not "
-                                  "ported yet (ROADMAP.md, queue A item 11)")
-    cfg = make_cfg(args.cfg_file, args.opts)
+    cfg = load_yaml_config(args.cfg_file, defaults=default_config())
     if args.tiny:   # the command line's opts still win over the tiny widths
-        cfg = cfg.merged(TINY).with_overrides(args.opts)
+        cfg = cfg.merged(TINY)
+    cfg = finalize(cfg.with_overrides(args.opts))
     if args.dry_run:
-        from .models import inb
         model = inb.InbModel(inb.build_model_spec(cfg), device="meta")
         total = 0
         for name, p in model.named_parameters():
@@ -130,8 +128,13 @@ def main(argv=None) -> None:
     from .train.loop import train
     window = (tuple(int(x) for x in args.profile_window.split(":"))
               if args.profile else None)
-    train(cfg, device, resume=not args.no_resume, profile_window=window,
-          seed=args.seed)
+    res = train(cfg, device, resume=not args.no_resume, profile_window=window,
+                seed=args.seed)
+    if args.test:
+        from .eval.runner import evaluate_dataset
+        from .renderer.inb_renderer import make_render_spec
+        evaluate_dataset(cfg.replace(eval=True), inb.build_model_spec(cfg),
+                         make_render_spec(cfg), res.state.model, split="test")
 
 
 def run_synthetic(cfg, device: torch.device, steps: int, seed: int,

@@ -1,27 +1,38 @@
 """The port's training loop on the CPU: the device batch and its cache,
 epochs and stages over the prefetcher, checkpoint and resume, the profiler
-window, the parts that raise (ROADMAP.md A11), the command line, and a run
-with cv2, imageio, PIL and jax blocked.
+window, the eval cadence (validation, visualization, the pruning cube)
+against the JAX loop's calls, the command line, and a run with cv2,
+imageio, PIL and jax blocked.
 
 The loop runs at the tiny widths (``train_net.TINY``) on a fake subject of
 2 frames x 2 views at 96^2, written by the port.  A run resumed from its
 checkpoint must end bit-equal to the same run unbroken: the items are
 seeded by (epoch, position) and the step's draws by the global step.
 """
+import glob
 import io
 import os
 import subprocess
 import sys
 from contextlib import redirect_stdout
 
+import cv2
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from instant_nvr_tpu.config import Config as JConfig
+from instant_nvr_tpu.eval import mesh as jmesh
+from instant_nvr_tpu.eval import runner as jrunner
+from instant_nvr_tpu.models import inb as jinb
+from instant_nvr_tpu.renderer import inb_renderer as jrend
 from instant_nvr_tpu.train import loop as jloop
 from instant_nvr_tpu.train import recorder as jrecorder
-from instant_nvr_tpu_torch import train_net
+from instant_nvr_tpu_torch import bridge, train_net
 from instant_nvr_tpu_torch.config import make_cfg
+from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
 from instant_nvr_tpu_torch.datasets.fake_zju import write_fake_dataset
 from instant_nvr_tpu_torch.models import inb
 from instant_nvr_tpu_torch.train import checkpoint, loop, recorder
@@ -29,6 +40,7 @@ from instant_nvr_tpu_torch.train.state import create_train_state
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
+F32_MODE = {"mlp_dtype": "float32", "grid_compute_dtype": "float32"}
 
 
 @pytest.fixture(scope="module")
@@ -178,16 +190,76 @@ def test_profile_window_writes_a_trace(subject, tmp_path):
     assert res.profile["steps"] == 1 and res.profile["device_s"] is None
 
 
+def _jax_side(cfg, exp):
+    """The JAX config (own result and model dirs), spec and render spec of
+    ``cfg``."""
+    jcfg = JConfig(cfg.merged({"result_dir": os.path.join(exp, "res"),
+                               "trained_model_dir": os.path.join(exp, "model")}).to_dict())
+    return jcfg, jinb.build_model_spec(jcfg), jrend.make_render_spec(jcfg)
+
+
+def _pngs(d):
+    return {os.path.basename(p): cv2.imread(p, cv2.IMREAD_UNCHANGED)
+            for p in sorted(glob.glob(os.path.join(d, "*.png")))}
+
+
 @pytest.mark.parametrize("part", ["eval_ep", "vis_ep", "prune_using_geo"])
-def test_unported_parts_raise(subject, tmp_path, part):
+def test_eval_cadence_matches_jax(subject, tmp_path, part, monkeypatch):
+    """``eval_ep``, ``vis_ep`` and ``prune_using_geo`` run after their
+    epochs, and write what the JAX loop's calls (``validate``, the one-item
+    ``evaluate_dataset`` of ``vis_ep``, ``occupancy_grid``)
+    write for the same trained weights: float32, metrics at the tolerances
+    of tests/test_torch_eval.py, the PNGs equal, the cube at atol 1e-5."""
     over = {"eval_ep": {"eval_ep": 2}, "vis_ep": {"vis_ep": 1},
             "prune_using_geo": {"prune_using_geo": True}}[part]
-    cfg = _cfg(subject, str(tmp_path), **over)
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        loop.train(cfg, CPU, resume=False)
-    assert not os.path.isdir(cfg.trained_model_dir)      # before any step
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        loop.validate(cfg, None, None, None, 0)
+    cfg = _cfg(subject, str(tmp_path / "t"), **F32_MODE, **over)
+    # the cube at res 24, not the loop's 128 (2.1 M points take minutes on a
+    # loaded CPU; the card runs 128 in chip_smoke.py phase 9)
+    grid = loop.occupancy_grid
+    monkeypatch.setattr(loop, "occupancy_grid",
+                        lambda *a, **kw: grid(*a, **dict(kw, res=24)))
+    res = loop.train(cfg, CPU, resume=False)
+    assert [e.epoch for e in res.epochs] == [0, 1]
+    tree = jax.tree.map(jnp.asarray, bridge.tree_from_model(res.state.model))
+    jcfg, jmspec, jrspec = _jax_side(cfg, str(tmp_path / "j"))
+    metrics = lambda d, e: np.load(os.path.join(d, f"metrics_epoch{e}.npy"),
+                                   allow_pickle=True).item()
+    if part == "prune_using_geo":
+        got = np.load(os.path.join(cfg.result_dir, "latest.npy"))
+        item = TPoseDataset(cfg, "train").get_item(0, rng=np.random.default_rng(0))
+        want, _ = jmesh.occupancy_grid(jcfg, jmspec, tree, item, False, res=24)
+        assert got.shape == (24, 24, 24)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        assert all(e.cube_s > 0 for e in res.epochs)
+        return
+    if part == "eval_ep":                 # after epoch 1 only: (1 + 1) % 2 == 0
+        jloop.validate(jcfg, jmspec, jrspec, tree, 1)
+        assert not os.path.exists(os.path.join(cfg.result_dir, "metrics_epoch0.npy"))
+    else:                                 # after both epochs, one item each
+        jrunner.evaluate_dataset(jcfg.replace(eval=True), jmspec, jrspec, tree,
+                                 split="val", epoch=1, max_items=1, save_images=True)
+        assert os.path.isdir(os.path.join(cfg.result_dir, "comparison_epoch0"))
+        got = _pngs(os.path.join(cfg.result_dir, "comparison_epoch1"))
+        want = _pngs(os.path.join(jcfg.result_dir, "comparison_epoch1"))
+        assert sorted(got) == sorted(want) and len(got) == 3
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    got, want = metrics(cfg.result_dir, 1), metrics(jcfg.result_dir, 1)
+    assert set(got) == set(want) and len(got["psnr"]) == len(want["psnr"]) > 0
+    np.testing.assert_allclose(got["psnr"], want["psnr"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["ssim"], want["ssim"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["lpips"], want["lpips"], rtol=0, atol=1e-5)
+    assert res.epochs[1].eval_s > 0 and res.epochs[1].cube_s < res.epochs[1].eval_s
+
+
+def test_validation_skips_a_split_without_data(subject, tmp_path, capsys):
+    cfg = _cfg(subject, str(tmp_path), eval_ep=1, vis_ep=1, train={"epoch": 1},
+               val_dataset={"data_root": str(tmp_path / "none"),
+                            "ann_file": str(tmp_path / "none" / "annots.npy")})
+    res = loop.train(cfg, CPU, resume=False)
+    out = capsys.readouterr().out
+    assert len(res.losses) == 2
+    assert "skipping val (no data)" in out and "skipping vis (no data)" in out
 
 
 def test_checkpoint_round_trip_and_keeps_twenty(tmp_path, monkeypatch):
@@ -257,8 +329,16 @@ def test_train_net_runs_the_loop_on_cpu(subject, tmp_path):
         with redirect_stdout(buf):
             train_net.main(["--cfg_file", "configs/inb/inb_fake.yaml", "--dry_run"])
         assert "total parameters: 18,001,911" in buf.getvalue()
-        with pytest.raises(NotImplementedError, match="queue A item 11"):
-            train_net.main(["--cfg_file", "configs/inb/inb_fake.yaml", "--test"])
+        # --test: every epoch is done, so the resumed run only evaluates
+        with redirect_stdout(io.StringIO()):
+            train_net.main(["--cfg_file", "configs/inb/inb_fake.yaml", "--device", "cpu",
+                            "--tiny", "--test", "test_dataset.data_root", subject,
+                            "test_dataset.ann_file", os.path.join(subject, "annots.npy")]
+                           + opts)
+        metrics = np.load(os.path.join(str(tmp_path), "inb", "inb_fake", "metrics.npy"),
+                          allow_pickle=True).item()
+        assert set(metrics) == {"mse", "psnr", "ssim", "lpips"}
+        assert len(metrics["psnr"]) == 1 and np.isfinite(metrics["psnr"]).all()
     finally:
         os.chdir(cwd)
 
@@ -270,8 +350,9 @@ for name in ("cv2", "imageio", "PIL", "jax", "jaxlib", "tensorflow"):
 import torch
 from instant_nvr_tpu_torch.datasets.fake_zju import write_fake_dataset
 from instant_nvr_tpu_torch.train import loop
-from instant_nvr_tpu_torch import train_net
+from instant_nvr_tpu_torch import bridge, train_net
 from instant_nvr_tpu_torch.config import make_cfg
+from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
 root, exp = sys.argv[1], sys.argv[2]
 write_fake_dataset(root, n_frames=2, n_views=2, H=64, W=64, supersample=1)
 data = {"data_root": root, "ann_file": os.path.join(root, "annots.npy")}

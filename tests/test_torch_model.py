@@ -333,12 +333,23 @@ def test_run_network_and_render_on_cpu(capsys):
     assert "forward:" in out and "render: 64 rays/frame" in out
 
 
-def test_run_refuses_unported_types_and_missing_card():
-    with pytest.raises(SystemExit, match="not ported"):
-        run.main(["--type", "evaluate"])
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            run.resolve_device("cuda")
+def test_run_rejects_unknown_type_and_missing_card(monkeypatch):
+    """An unknown --type exits listing every type (the JAX dispatch's and
+    ``render``); every type, on a machine without a card, raises."""
+    with pytest.raises(SystemExit, match="unknown --type mesh") as e:
+        run.main(["--type", "mesh"])
+    for t in list(run.DISPATCH) + ["render"]:
+        assert repr(t) in str(e.value)
+    assert set(run.DISPATCH) == {"evaluate", "dataset", "network", "vis", "bullet",
+                                 "prune", "exportdecoder", "exportpart", "tmesh",
+                                 "tdmesh"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run.resolve_device("cuda")
+    for t in list(run.DISPATCH) + ["render"]:
+        with pytest.raises(RuntimeError, match="torch.cuda is not available"):
+            run.main(["--type", t, "--cfg_file",
+                      os.path.join(ROOT, "configs/inb/inb_fake.yaml")])
 
 
 def test_port_never_imports_jax():
