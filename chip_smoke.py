@@ -48,7 +48,7 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      instant_nvr_tpu_torch.train_net --cfg_file configs/inb/inb_fake.yaml``
      (``train/loop.py:train``) at full width in patch-LPIPS mode (4,096
      rays a step as one 64x64 patch): writes the fake subject with the
-     port's own writer (3 views x 4 frames at 512^2, 2,000 vertices;
+     port's own writer (3 views x 5 frames at 512^2, 2,000 vertices;
      supersample cut to 1), trains 2 epochs of 10 steps through both
      ``ratio`` stages of inb_377 (0.3, then 0.5 with the head focus), then
      resumes from the checkpoint for a third epoch; checks finite losses,
@@ -60,7 +60,7 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      patch step (``patch_size`` 16) card vs CPU.
   9. eval slice, on phase 8's checkpoint, through the functions of ``python
      -m instant_nvr_tpu_torch.run --type evaluate|prune|tmesh|tdmesh|bullet``:
-     evaluates the test split (view 2 x 4 frames at 512^2, the budgets
+     evaluates the test split (view 2 x 5 frames at 512^2, the budgets
      raised on the first frame and saved), printing each frame's render and
      metrics ms, the warm median, rays, chunks, peak memory, PSNR, SSIM and
      LPIPS (recorded, not gated); loads the weights without ``run.load``'s
@@ -77,8 +77,24 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      (PNGs; an mp4 only where ffmpeg exists); then trains a fourth epoch
      with ``eval_ep``, ``vis_ep`` and ``prune_using_geo`` at 1 and checks
      their artifacts, printing the epoch's steps, cube and validation time.
+ 10. data-parallel slice (``instant_nvr_tpu_torch/parallel``), through
+     ``tools/multiprocess_check.py``'s ranks: two Gloo ranks on the one
+     card (NCCL refuses two ranks on one device) take 5 full-width steps,
+     the MSE step (1,024 rays x 64 samples) and a 64x64 patch-LPIPS step
+     of phase 8's subject, from the weights and draws of a one-process
+     card step, with budgets raised until neither the whole batch nor a
+     rank's slice overflows; the first step's loss, all-reduced gradients
+     and updated parameters are held against the one-process step at
+     phase 6's tolerances, the ranks' parameters bit-equal after 5 steps
+     (rank 0's broadcast), each rank's launches against the routing;
+     prints per-rank ms per step, the all-reduce's ms and MB, peak memory
+     per rank.  Then one NCCL rank runs ``train_net --distributed`` for 3
+     patch steps of the subject, and two Gloo ranks ``run --type evaluate
+     --distributed`` on phase 9's weights and budgets (5 items: shards of 3
+     and 2), whose ``metrics.npy`` is held to phase 9's (PSNR within 1e-4
+     dB, the rest 1e-6; bit-equality printed).
 Then one JSON line of kernel numbers (launches: the render, train,
-self-check, patch and evaluate phases together; a KNN row's times are the render
+self-check, patch, evaluate and data-parallel phases together; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
@@ -86,7 +102,8 @@ row also has ``patch_step_launches``, the patch runs' launches over their
 steps, and a row on the patch path its times on the patch step's own
 inputs as ``patch_shape_*``; ``knn_blend`` also has its launches per eval
 frame as read in the second evaluation, ``eval_frame_launches``, and its times on one eval chunk's own
-inputs as ``eval_shape_*``),
+inputs as ``eval_shape_*``; every row has phase 10's launches in each
+rank, ``dp_launches_per_rank``, which ``launches`` includes),
 the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -867,6 +884,12 @@ def selfcheck(dev, knn, scatter, routes):
 
 
 PATCH_EPOCH_STEPS = 10
+# the fake subject's frames: odd, so phase 10's two ranks evaluate uneven
+# shards of the test split (one view)
+FRAMES = 5
+DP_DIR = os.path.join(HERE, "exps", "chip_smoke_dp")
+DP_MODEL = os.path.join(DP_DIR, "model")      # phase 9's weights and budgets
+DP_STEPS = 5
 PATCH_PROFILE = (5, 10)       # the resumed run's (epoch 2's) last 5 steps
 
 
@@ -879,6 +902,7 @@ def patch_cfg(root, exp_dir, epochs, **extra):
     return cfg.merged({
         "train_dataset": data, "val_dataset": data, "test_dataset": data,
         "smpl_meta": os.path.join(root, "smpl-meta"),
+        "num_train_frame": FRAMES, "num_latent_code": FRAMES,
         "ep_iter": PATCH_EPOCH_STEPS, "train": {"epoch": epochs},
         "log_interval": 5,
         "training_stages": [{"ratio": 0.3, "_start": 0},
@@ -1062,9 +1086,9 @@ def patch_slice(dev, knn, scatter):
     exp = os.path.join(HERE, "exps", "chip_smoke_patch")
     shutil.rmtree(exp, ignore_errors=True)
     t0 = time.perf_counter()
-    write_fake_dataset(root, n_frames=4, n_views=3, n_verts=2000, H=512, W=512,
+    write_fake_dataset(root, n_frames=FRAMES, n_views=3, n_verts=2000, H=512, W=512,
                        supersample=1)
-    phase("patch-data", root=os.path.relpath(root, HERE), views=3, frames=4,
+    phase("patch-data", root=os.path.relpath(root, HERE), views=3, frames=FRAMES,
           side=512, verts=2000, supersample=1,
           seconds=f"{time.perf_counter() - t0:.2f}")
     cfg = patch_cfg(root, exp, epochs=2)
@@ -1208,6 +1232,13 @@ def eval_slice(dev, knn, scatter):
     peak = torch.cuda.max_memory_allocated()
     if not os.path.isfile(budgets):
         raise AssertionError(f"no {budgets} after the evaluation")
+    # phase 10 evaluates these weights again over two ranks, from the
+    # budgets this evaluation raised: keep both (the cadence epoch below
+    # trains on, and a later evaluation rewrites metrics.npy)
+    shutil.rmtree(DP_MODEL, ignore_errors=True)
+    shutil.copytree(os.path.join(cfg.trained_model_dir, "latest"),
+                    os.path.join(DP_MODEL, "latest"))
+    shutil.copy(budgets, DP_MODEL)
     with open(budgets) as f:
         raised = f.read()
     n_items = len(r["items"])
@@ -1224,8 +1255,9 @@ def eval_slice(dev, knn, scatter):
                              f"chunks per frame {per_frame}")
     warm = float(np.median(render_ms[1:]))
     saved = np.load(os.path.join(cfg.result_dir, "metrics.npy"), allow_pickle=True).item()
+    shutil.copy(os.path.join(cfg.result_dir, "metrics.npy"), DP_MODEL)
     pngs = glob.glob(os.path.join(cfg.result_dir, "comparison", "*.png"))
-    if n_items != 4 or len(pngs) != 3 * n_items or len(saved["psnr"]) != n_items \
+    if n_items != FRAMES or len(pngs) != 3 * n_items or len(saved["psnr"]) != n_items \
             or not np.isfinite([r[k] for k in ("psnr", "ssim", "lpips")]).all():
         raise AssertionError(f"evaluate: {n_items} items, {len(pngs)} PNGs, "
                              f"metrics {r}")
@@ -1360,6 +1392,230 @@ def eval_slice(dev, knn, scatter):
     assert_workspace_zero("eval slice")
     return counts, eval_knn, frame_launches
 
+def _tree_of(mspec, state_dict):
+    """The JAX-named tree of a state dict (a gradient's unused tables as
+    zeros), on the host."""
+    import torch
+    from instant_nvr_tpu_torch import bridge
+    from instant_nvr_tpu_torch.models import inb
+    model = inb.InbModel(mspec, "cpu")
+    full = {k: torch.zeros_like(v) for k, v in model.state_dict().items()}
+    model.load_state_dict(dict(full, **state_dict))
+    return bridge.tree_from_model(model, "data")
+
+
+def _no_overflow(cfg, inputs, dev, world=2, raises=4):
+    """(``cfg`` with budgets raised by ``eval/runner.py:raise_budgets`` until
+    the first step's forward overflows nothing, in one process on the whole
+    batch and on each rank's slice, its model spec): only then do the
+    ranks select the points one process selects (ROADMAP.md §C)."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.eval.runner import raise_budgets
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.parallel import mesh as pmesh
+    from instant_nvr_tpu_torch.renderer.inb_renderer import (make_render_spec,
+                                                              pair_budget, render_rays)
+    rspec = make_render_spec(cfg)
+    t_rand = inputs["draws"]["t_rand"].to(dev)
+    for _ in range(raises + 1):
+        mspec = inb.build_model_spec(cfg)
+        model = inb.InbModel(mspec, dev)
+        model.load_state_dict(inputs["state"])
+        worst, over = None, 0.0
+        for r, w in [(0, 1)] + [(r, world) for r in range(world)]:
+            b = pmesh.shard_batch(inputs["batch"], r, w)
+            b = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in b.items()}
+            n = b["ray_o"].shape[0]
+            d = {"t_rand": t_rand[r * n:(r + 1) * n], "pair_noise": torch.zeros(
+                pair_budget(mspec, rspec, n * rspec.n_samples), 3, device=dev)}
+            with torch.no_grad():
+                ret = render_rays(mspec, rspec, model, b, train=True, draws=d)
+            over += float(ret["cull_overflow"]) + float(ret["part_overflow"])
+            need = (float(ret["cull_need"]), ret["part_need"].cpu().numpy())
+            worst = need if worst is None else (max(worst[0], need[0]),
+                                                np.maximum(worst[1], need[1]))
+        if over == 0:
+            return cfg, mspec
+        raised = raise_budgets(mspec, *worst)
+        cfg = cfg.merged({"cull_budget": raised.cull_frac,
+                          "part_budget": raised.part_frac,
+                          "part_budget_scales": list(raised.part_budget_scales)})
+    raise AssertionError(f"budgets still overflow after {raises} raises")
+
+
+def dp_step_case(label, cfg, batch, dev, seed):
+    """One full-width step in one process on the card against two Gloo
+    ranks on the same card (``DP_STEPS`` steps, the first compared), from
+    the same weights (random, from ``seed``) and draws.  Returns the ranks'
+    results."""
+    import torch
+    from instant_nvr_tpu_torch import run
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.tools import multiprocess_check as mc
+    from instant_nvr_tpu_torch.train.step import draw_render, table_grad_launches
+    cpu = torch.device("cpu")
+    mspec, rspec, model = run.build(cfg, cpu, seed=seed)
+    n_rays = len(batch["ray_o"])
+    gen = torch.Generator().manual_seed(seed + 1)
+    inputs = {"state": model.state_dict(), "batch": batch, "seed": seed + 2,
+              "steps": DP_STEPS, "draws": draw_render(mspec, rspec, n_rays, gen, cpu)}
+    cfg, mspec = _no_overflow(cfg, inputs, dev)
+    # the pair offsets of the raised budgets' pair budget, after the jitter
+    inputs["draws"] = draw_render(mspec, rspec, n_rays, gen.manual_seed(seed + 1), cpu)
+    inputs["cfg"] = cfg.to_dict()
+    routes = table_grad_launches(mspec, make_render_spec(cfg))
+    work = os.path.join(DP_DIR, label)
+    os.makedirs(work, exist_ok=True)
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    ranks = mc.launch("step", 2, work, device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    one = mc.case_step(dict(inputs, steps=1), dev)
+    if one["stats0"]["cull_overflow"] or one["stats0"]["part_overflow"]:
+        raise AssertionError(f"{label}: the one-process step overflowed")
+    lr = cfg.train.lr
+    worst, moved = compare_step(
+        ranks[0]["losses"][0], one["losses"][0],
+        _tree_of(mspec, ranks[0]["grads0"]), _tree_of(mspec, one["grads0"]),
+        _tree_of(mspec, ranks[0]["params0"]), _tree_of(mspec, one["params0"]), lr)
+    steps = len(ranks[0]["losses"])
+    want = {"knn_blend": steps, "segmented_scatter_add": steps * routes["segmented"],
+            "onehot_scatter_add": steps * routes["onehot"]}
+    for r in ranks:
+        if r["losses"] != ranks[0]["losses"] or not r["equal"]:
+            raise AssertionError(f"{label}: rank {r['rank']} losses {r['losses']} vs "
+                                 f"{ranks[0]['losses']}, parameters equal {r['equal']}")
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: rank {r['rank']} launches {r['launches']} "
+                                 f"!= {want}")
+    phase("dp-step", case=label, card=repr(nvidia_smi()), ranks=2, backend="gloo",
+          rays=n_rays, rays_per_rank=n_rays // 2, samples=cfg.N_samples,
+          budgets=f"cull {mspec.cull_frac:.4f} part {mspec.part_frac:.4f}",
+          loss_2rank=f"{ranks[0]['losses'][0]:.6f}", loss_1proc=f"{one['losses'][0]:.6f}",
+          worst_grad_rel_l2=f"{worst:.3e}", params_differing=moved,
+          tol=repr("loss rtol 1e-3; grads bf16-sized; params <= 2.1 lr (phase 6)"),
+          bit_equal_after=steps, steps=steps,
+          ms_per_step=[[f"{t:.1f}" for t in r["ms"]] for r in ranks],
+          ms_per_step_1proc=f"{one['ms'][0]:.1f}",
+          allreduce_ms=[f"{r['allreduce_ms']:.2f}" for r in ranks],
+          allreduce_MB=f"{ranks[0]['allreduce_bytes'] / 1e6:.2f}",
+          peak_mem_GB=[f"{r['peak_mem'] / 1e9:.3f}" for r in ranks],
+          launches_per_rank=repr([r["launches"] for r in ranks]),
+          wall_s=f"{wall:.1f}")
+    return ranks
+
+
+def dp_slice(dev, knn, scatter):
+    """Phase 10 (see the module doc).  Returns each rank's launches, per
+    kernel, over the phase's runs."""
+    import glob
+    import shutil
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import train_net
+    from instant_nvr_tpu_torch.config import make_cfg
+    from instant_nvr_tpu_torch.datasets.samplers import shard_indices
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.tools import multiprocess_check as mc
+    from instant_nvr_tpu_torch.train import loop
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    for d in glob.glob(os.path.join(DP_DIR, "*")):
+        if os.path.abspath(d) != DP_MODEL:
+            shutil.rmtree(d, ignore_errors=True)
+    per_rank = [dict.fromkeys(("knn_blend", "segmented_scatter_add",
+                               "onehot_scatter_add"), 0) for _ in range(2)]
+
+    def add(ranks):
+        for acc, r in zip(per_rank, ranks):
+            for k in acc:
+                acc[k] += r["launches"][k]
+
+    cpu = torch.device("cpu")
+    # the MSE step: inb_377 on the synthetic batch, 1,024 rays x 64 samples
+    # (phase 5's step: the image MSE, not the config's patch loss)
+    cfg = make_cfg(CFG).merged({"use_lpips": False})
+    batch = {k: v.numpy() for k, v in train_net.synthetic_batch(cfg, cpu).items()}
+    add(dp_step_case("mse", cfg, batch, dev, seed=0))
+    # the patch step: one 64x64 LPIPS patch (4,096 rays) of phase 8's subject
+    root = os.path.join(HERE, "data", "fake_zju_smoke")
+    pcfg = patch_cfg(root, os.path.join(DP_DIR, "patch_exp"), epochs=1)
+    item = TPoseDataset(pcfg, "train").get_item(0, rng=np.random.default_rng(3))
+    pbatch = {k: np.asarray(item[k]) for k in loop.DEVICE_KEYS if k in item}
+    pbatch["reg_dist_weight"] = np.float32(0.1)
+    add(dp_step_case("patch", pcfg, pbatch, dev, seed=10))
+    routes = table_grad_launches(inb.build_model_spec(pcfg), make_render_spec(pcfg))
+
+    # one NCCL rank through train_net --distributed: a few patch steps
+    data = {"data_root": root, "ann_file": os.path.join(root, "annots.npy")}
+    opts = []
+    for split in ("train_dataset", "val_dataset", "test_dataset"):
+        opts += [f"{split}.data_root", data["data_root"], f"{split}.ann_file",
+                 data["ann_file"]]
+    opts += ["smpl_meta", os.path.join(root, "smpl-meta"), "num_train_frame", str(FRAMES)]
+    exp = os.path.join(DP_DIR, "nccl")
+    work = os.path.join(DP_DIR, "nccl_run")
+    os.makedirs(work)
+    torch.save({"module": "train_net", "argv": [
+        "--cfg_file", os.path.join(HERE, "configs", "inb", "inb_fake.yaml"),
+        "--device", "cuda", "--distributed", "--no_resume", *opts,
+        "ep_iter", "3", "train.epoch", "1", "eval_ep", "100", "result_dir", exp,
+        "trained_model_dir", os.path.join(exp, "model"),
+        "record_dir", os.path.join(exp, "record")]}, os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    (nccl,) = mc.launch("cli", 1, work, device="cuda", backend=None, timeout=300)
+    want = {"knn_blend": 3, "segmented_scatter_add": 3 * routes["segmented"],
+            "onehot_scatter_add": 3 * routes["onehot"]}
+    if nccl["backend"] != "nccl" or nccl["launches"] != want or nccl["epochs"] != [0] \
+            or not np.isfinite(nccl["losses"]).all():
+        raise AssertionError(f"nccl rank: {nccl}")
+    phase("dp-nccl", card=repr(nvidia_smi()), ranks=1, backend=nccl["backend"],
+          entry="train_net --distributed", config="inb_fake (inb_377 widths), patch LPIPS",
+          steps=len(nccl["losses"]), losses=[f"{x:.5f}" for x in nccl["losses"]],
+          ms_per_step=[f"{x:.1f}" for x in nccl["ms_per_step"]],
+          launches=repr(nccl["launches"]), wall_s=f"{time.perf_counter() - t0:.1f}")
+    per_rank[0] = {k: v + nccl["launches"][k] for k, v in per_rank[0].items()}
+
+    # run --type evaluate over two Gloo ranks on phase 9's weights and
+    # budgets: its metrics.npy against phase 9's one-process file
+    work = os.path.join(DP_DIR, "eval_run")
+    os.makedirs(work)
+    res = os.path.join(DP_DIR, "eval")
+    torch.save({"module": "run", "argv": [
+        "--cfg_file", os.path.join(HERE, "configs", "inb", "inb_fake.yaml"),
+        "--type", "evaluate", "--device", "cuda:0", "--distributed", *opts,
+        "eval_ratio", "1.0", "test.frame_sampler_interval", "1",
+        "result_dir", res, "trained_model_dir", DP_MODEL]},
+        os.path.join(work, "inputs.pt"))
+    t0 = time.perf_counter()
+    ev = mc.launch("cli", 2, work, device="cuda", timeout=600)
+    wall = time.perf_counter() - t0
+    (path,) = glob.glob(os.path.join(res, "**", "metrics.npy"), recursive=True)
+    got = np.load(path, allow_pickle=True).item()
+    want = np.load(os.path.join(DP_MODEL, "metrics.npy"), allow_pickle=True).item()
+    diff = {k: float(np.max(np.abs(np.subtract(got[k], want[k]))))
+            for k in want if len(got[k]) == len(want[k])}
+    if len(got["psnr"]) != FRAMES or len(diff) != 4 or diff["psnr"] > 1e-4 \
+            or max(diff["mse"], diff["ssim"], diff["lpips"]) > 1e-6:
+        raise AssertionError(f"2-rank metrics {got} vs phase 9's {want}")
+    if any(os.path.basename(p) == "metrics.npy" for p in ev[1]["writes"]):
+        raise AssertionError("rank 1 wrote metrics.npy")
+    counts = [r["launches"] for r in ev]
+    if any(c["knn_blend"] == 0 or c["segmented_scatter_add"] or c["onehot_scatter_add"]
+           for c in counts):
+        raise AssertionError(f"evaluate ranks' launches {counts}")
+    add(ev)
+    phase("dp-evaluate", card=repr(nvidia_smi()), ranks=2, backend="gloo",
+          items=FRAMES, shards=[len(shard_indices(list(range(FRAMES)), r, 2, pad=False))
+                                for r in range(2)], side=512,
+          bit_equal=all(np.array_equal(got[k], want[k], equal_nan=True) for k in want),
+          max_abs_diff=repr(diff), tol=repr("psnr 1e-4 dB; mse, ssim, lpips 1e-6"),
+          psnr=[f"{x:.5f}" for x in got["psnr"]], launches_per_rank=repr(counts),
+          wall_s=f"{wall:.1f}")
+    return per_rank
+
 
 def main() -> int:
     import torch
@@ -1490,6 +1746,13 @@ def main() -> int:
     phase("eval-slice", seconds=f"{time.perf_counter() - t0:.1f}")
     counts = {k: counts[k] + eval_launches[k] for k in counts}
 
+    # 10. the data-parallel slice: two ranks on the card, one NCCL rank
+    t0 = time.perf_counter()
+    dp_launches = dp_slice(dev, knn, scatter)
+    phase("dp-slice", seconds=f"{time.perf_counter() - t0:.1f}",
+          launches_per_rank=repr(dp_launches))
+    counts = {k: counts[k] + sum(r.get(k, 0) for r in dp_launches) for k in counts}
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -1543,6 +1806,9 @@ def main() -> int:
             r.update(eval_frame_launches=eval_per_frame, eval_shape_ms=ms,
                      eval_shape_device_ms=dev_ms, eval_shape_plain_ms=pms,
                      eval_shape_bound_ms=bnd[0], eval_shape_bound_by=bnd[1])
+    for r in rows:
+        # phase 10's launches in each rank (rank 0's with the NCCL rank's)
+        r["dp_launches_per_rank"] = [d.get(r["name"], 0) for d in dp_launches]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,9 @@ them one after another on the device and gathers the telemetry on the
 device, so a frame waits for the device once, at the end.  Padding is the
 JAX version's as it is (a power-of-two chunk count, padded by wrapping the
 real rays), so the worst-chunk telemetry, and with it the budgets, match.
-The port runs in one process: the JAX version's per-process item shards
-and the metrics' allgather (``shard_indices``, ``_allgather_metrics``) are
-not ported (ROADMAP.md A12).
+Across ranks (``parallel/mesh.py``) each rank renders a contiguous shard
+of the items, raises budgets into its own ``eval_budgets.json.rank<r>``,
+and rank 0 writes the metrics of every item (:func:`_allgather_metrics`).
 """
 from __future__ import annotations
 
@@ -21,9 +21,10 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..datasets.samplers import FrameSampler
+from ..datasets.samplers import FrameSampler, shard_indices
 from ..datasets.tpose_dataset import TPoseDataset
 from ..models import inb
+from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import TELEMETRY_KEYS, RenderSpec, render_rays
 from .evaluator import Evaluator
 
@@ -127,9 +128,9 @@ class AutoBudgetRenderer:
     ``chunks_rendered`` counts every chunk rendered, re-renders included.
 
     Raised budgets are written to ``persist_path`` (``eval_budgets.json``
-    in the model directory, the JAX package's keys) and merged back, with
-    any ``persist_path*`` sidecar, when a later renderer starts, so an eval
-    pays a raise once.
+    in the model directory, the JAX package's keys; ``.rank<r>`` appended
+    on rank r > 0) and merged back, with any ``persist_path*`` sidecar,
+    when a later renderer starts, so an eval pays a raise once.
     """
 
     def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, chunk: int,
@@ -154,8 +155,10 @@ class AutoBudgetRenderer:
     def _save(self) -> None:
         if not self.persist_path:
             return
-        os.makedirs(os.path.dirname(self.persist_path), exist_ok=True)
-        with open(self.persist_path, "w") as f:
+        r = pmesh.rank()
+        path = self.persist_path if r == 0 else f"{self.persist_path}.rank{r}"
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
             json.dump({"cull_frac": self.mspec.cull_frac,
                        "part_frac": self.mspec.part_frac,
                        "scales": list(self.mspec.part_budget_scales)}, f)
@@ -201,12 +204,17 @@ def evaluate_dataset(cfg, mspec: inb.ModelSpec, rspec: RenderSpec,
     ``frame_sampler_interval`` frames, at most ``max_items``) on the
     model's device, score it and summarize.  Returns the mean metrics (the
     JAX version's dict) plus ``items``, each item's (index, rays, data s,
-    render s, metrics s), and ``chunks_rendered``."""
+    render s, metrics s), and ``chunks_rendered``.  Across ranks each
+    renders its shard of the items; the metrics and the summary cover
+    every item, and only rank 0 writes them (the PNGs: each rank its own
+    items')."""
     ds = TPoseDataset(cfg, split)
     interval = cfg[split].get("frame_sampler_interval", 1) if split in cfg else 1
     indices = list(FrameSampler(len(ds), ds.num_cams, interval))
     if max_items:
         indices = indices[:max_items]
+    n_total = len(indices)
+    indices = shard_indices(indices, pmesh.rank(), pmesh.world_size(), pad=False)
     renderer = AutoBudgetRenderer(mspec, rspec, eval_chunk(cfg),
                                   persist_path=budgets_path(cfg))
     evaluator = Evaluator(result_dir=cfg.result_dir,
@@ -233,5 +241,27 @@ def evaluate_dataset(cfg, mspec: inb.ModelSpec, rspec: RenderSpec,
         timings.append((idx, n, t1 - t0, t2 - t1, t3 - t2))
         print(f"eval item {idx} ({n} rays): data {t1 - t0:.2f}s  "
               f"render {t2 - t1:.2f}s  metrics {t3 - t2:.2f}s", flush=True)
+    if pmesh.world_size() > 1:
+        _allgather_metrics(evaluator, n_total)
+        if not pmesh.is_rank0():
+            evaluator.result_dir = ""   # rank 0 writes the merged metrics
     return dict(evaluator.summarize(epoch=epoch), items=timings,
                 chunks_rendered=renderer.chunks_rendered)
+
+
+def _allgather_metrics(evaluator: Evaluator, n_total: int) -> None:
+    """Every rank's metric lists, merged in rank order (the shards are
+    contiguous, so this is the items' order), on every rank.  Shards can
+    be uneven: each rank sends its count in the first slot of a buffer of
+    ``cap + 1``, and the padding is dropped by count, not by value, so a
+    genuine NaN metric survives as it would in one process.  Float64, so
+    the merged values are the ranks' own."""
+    cap = -(-n_total // pmesh.world_size())
+    for attr in ("mse", "psnr", "ssim", "lpips"):
+        xs = getattr(evaluator, attr)
+        a = torch.zeros(cap + 1, dtype=torch.float64, device=pmesh.rank_device())
+        a[0] = len(xs)
+        a[1:1 + len(xs)] = torch.tensor(xs, dtype=torch.float64)
+        rows = pmesh.all_gather_rows(a).cpu().numpy()
+        setattr(evaluator, attr, [float(v) for row in rows
+                                  for v in row[1:1 + int(row[0])]])

@@ -85,15 +85,27 @@ def apply_auto_budget(cfg):
     gathers' intermediates grow with them).  The budgets are saved to
     ``trained_model_dir/budgets.json`` at the first probe and read from it
     afterwards, so a resumed run builds the model with the budgets it
-    trained at.  One process only: the multi-process branch (rank 0 probes
-    and broadcasts) comes with the multi-GPU layer (ROADMAP.md A12)."""
+    trained at.  Across ranks, rank 0 loads or probes and broadcasts the
+    budgets, and only it writes the file: ranks that probed on their own
+    could build models of other shapes (a probe changes once
+    ``latest.npy`` exists), and then their collectives would not match."""
     if not cfg.get("auto_budget", False):
         return cfg
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "auto_budget across processes (rank 0 probes and broadcasts) is not "
-            "ported yet (ROADMAP.md, queue A item 12)")
+    from ..parallel import mesh as pmesh
+    if pmesh.world_size() > 1:
+        import torch
+        vals = torch.zeros(7, dtype=torch.float64, device=pmesh.rank_device())
+        if pmesh.is_rank0():
+            c = _load_or_probe(cfg)
+            vals[:] = torch.tensor([c.cull_budget, c.part_budget,
+                                    *c.part_budget_scales], dtype=torch.float64)
+        vals = pmesh.broadcast_(vals).tolist()
+        return cfg.merged({"cull_budget": vals[0], "part_budget": vals[1],
+                           "part_budget_scales": vals[2:]})
+    return _load_or_probe(cfg)
+
+
+def _load_or_probe(cfg):
     path = os.path.join(cfg.trained_model_dir, "budgets.json")
     if os.path.exists(path):
         with open(path) as f:

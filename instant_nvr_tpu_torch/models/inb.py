@@ -216,8 +216,10 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     """wpts/viewdir (N, 3) flattened ray samples -> dict with raw (N, 4),
     occ (N, 1) and the budget telemetry (cull/part overflow and need).
     ``train`` adds the selected points' residual ``resd`` (M, 3), bigpose
-    points ``tpts`` (M, 3), occupancy ``tocc`` (M, 1) and validity ``tflag``
-    (M,), part-major, and the cull validity ``cull_valid`` (K,).
+    points ``tpts`` (M, 3), occupancy ``tocc`` (M, 1), validity ``tflag``
+    (M,), part ``tpart`` and part distance ``tdist`` (M,), part-major, the
+    cull validity ``cull_valid`` (K,) and the overflows' counts
+    ``budget_counts`` (4,).
 
     ``batch`` carries the per-frame SMPL metadata: R (3,3), Th (1,3),
     A/big_A (24,4,4), pbw (X,Y,Z,25) + pbw_sizes + pbounds, part_pts /
@@ -377,6 +379,13 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
             "tpts": init_bigpose,
             "tocc": occ_v.reshape(P * Kmax, 1)[tocc_idx],
             "tflag": all_valid,
+            # each slot's part and part distance: the pair selection's
+            # tie-break (renderer/inb_renderer.py:pair_order)
+            "tpart": pid,
+            "tdist": torch.cat([best[p, :Kps[p]] for p in range(P)]),
             "cull_valid": cvalid,
+            # the overflows' counts, which ranks sum (train/step.py)
+            "budget_counts": torch.stack([true_surv, sel_surv, flag_total,
+                                          sel_total]),
         })
     return ret

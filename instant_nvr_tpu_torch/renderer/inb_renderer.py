@@ -24,7 +24,7 @@ from ..models import inb
 from ..ops.math import safe_norm
 from ..ops.ray import stratified_z_vals, z_to_points
 from ..ops.rendering import distortion_loss, volume_rendering
-from ..ops.select import topk_select
+from ..parallel import mesh as pmesh
 
 TELEMETRY_KEYS = ("cull_overflow", "part_overflow", "cull_need", "part_need")
 
@@ -91,17 +91,30 @@ def render_rays(mspec: inb.ModelSpec, rspec: RenderSpec, model: inb.InbModel,
         return ret
 
     ret["resd"] = net["resd"]
+    ret["tflag"] = net["tflag"]
+    ret["budget_counts"] = net["budget_counts"]
     if rspec.use_pair_reg:
         score = torch.where(net["tflag"], torch.abs(net["tocc"][:, 0] - 0.5),
                             torch.full_like(net["tocc"][:, 0], float("inf")))
         budget = pair_budget(mspec, rspec, R * S)
-        idx, valid = topk_select(score, budget, rspec.pair_thresh)
+        order = pair_order(score, net["tpart"], net["tdist"])
+        idx = torch.topk(order, budget, largest=False).indices
+        valid = score[idx] < rspec.pair_thresh
         tpts = net["tpts"][idx]                             # (B, 3)
         noise = draws.get("pair_noise")
         if noise is None:
             noise = (torch.rand(tpts.shape, generator=generator,
                                 dtype=tpts.dtype, device=tpts.device)
                      - 0.5) * rspec.pair_range
+        else:
+            # the one-process rows (see ``train/step.py:draw_render``): a
+            # point takes the row of its slot in the top-k over all ranks,
+            # and one past that top-k's budget is none of its pairs.  A
+            # rank's own top-k holds every one of its points in the top-k
+            # over all ranks (its budget is that one's, or all its slots)
+            rows = pmesh.global_positions(order[idx])
+            valid = valid & (rows < noise.shape[0])
+            noise = noise[torch.clamp(rows, max=noise.shape[0] - 1)]
         ret["pair_resd0"] = net["resd"][idx]
         ret["pair_resd1"] = inb.resd_fn(mspec, model, tpts + noise, batch)
         ret["pair_valid"] = valid
@@ -110,12 +123,30 @@ def render_rays(mspec: inb.ModelSpec, rspec: RenderSpec, model: inb.InbModel,
     return ret
 
 
+def pair_order(score: torch.Tensor, part: torch.Tensor,
+               dist: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order the pair candidates by score, ties by part,
+    then by part distance: the JAX package's ``lax.top_k`` order over its
+    part-major slots (ties to the lower slot; a part's slots ascend in
+    distance), made of what a slot is, not where it lies, so ranks that
+    hold other slices of the samples order their candidates alike.  The
+    score, clamped to 1 (anything at or above the pair threshold only has
+    to come after what is below it), takes the top 30 bits, the part the
+    next 3, the distance's top 30 bits the rest; non-negative floats order
+    as their bits."""
+    s = torch.clamp(score, max=1.0).view(torch.int32).to(torch.int64)
+    d = dist.float().contiguous().view(torch.int32).to(torch.int64) >> 1
+    return (s << 33) | (part.to(torch.int64) << 30) | d
+
+
 def pair_reg_loss(resd0: torch.Tensor, resd1: torch.Tensor,
-                  valid: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+                  valid: torch.Tensor, eps: float = 1e-8,
+                  count: torch.Tensor | None = None) -> torch.Tensor:
     """Direction consistency of the residuals at neighbouring points: the
-    distance of their unit directions, masked mean over the valid slots."""
+    distance of their unit directions, masked mean over the valid slots
+    (over ``count`` of them when given: every rank's)."""
     v0 = resd0 / (safe_norm(resd0, dim=-1, keepdim=True) + eps)
     v1 = resd1 / (safe_norm(resd1, dim=-1, keepdim=True) + eps)
     per_pt = safe_norm(v1 - v0, dim=-1)
-    denom = torch.clamp(torch.sum(valid), min=1)
+    denom = torch.clamp(torch.sum(valid) if count is None else count, min=1)
     return torch.sum(torch.where(valid, per_pt, torch.zeros_like(per_pt))) / denom

@@ -24,7 +24,10 @@ Each loads the weights of ``trained_model_dir`` (epoch ``--epoch`` or
 ``--seed``, with a warning when there is none.  The port's own ``render``
 renders full synthetic frames at the config's eval resolution (1024 *
 eval_ratio per side) from random weights.  The device defaults to ``cuda``
-and a missing card is an error, never a silent CPU run.
+and a missing card is an error, never a silent CPU run.  ``--distributed``
+(``evaluate`` and ``vis``; torchrun's environment, ``parallel/mesh.py``)
+splits the items over the ranks: NCCL on ``cuda``, Gloo on ``cpu``; rank
+0 writes the metrics of every item.
 """
 from __future__ import annotations
 
@@ -47,6 +50,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--frames", type=int, default=1,
                    help="frames to render (--type render)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one rank of a torch.distributed evaluation "
+                        "(torchrun's environment): NCCL on cuda, Gloo on cpu")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -270,16 +276,31 @@ DISPATCH = {
 }
 
 
+SHARDED = ("evaluate", "vis")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.type not in DISPATCH and args.type != "render":
         raise SystemExit(f"unknown --type {args.type}; one of "
                          f"{list(DISPATCH) + ['render']}")
+    if not args.distributed:
+        _main(args, args.device)
+        return
+    if args.type not in SHARDED:
+        raise SystemExit(f"--distributed runs --type {' or '.join(SHARDED)}, "
+                         f"not {args.type}")
+    from .parallel import mesh as pmesh
+    with pmesh.distributed(args.device) as device:
+        _main(args, device)
+
+
+def _main(args, device) -> None:
     from .config import make_cfg
     cfg = make_cfg(args.cfg_file, args.opts)
     if args.epoch >= 0:
         cfg = cfg.replace(test=cfg.test.replace(epoch=args.epoch))
-    device = resolve_device(args.device)
+    device = resolve_device(str(device))
     if args.type == "render":
         run_render(cfg, device, args.frames, args.seed)
         return

@@ -7,7 +7,7 @@ Each directory holds ``state.pt``, written with ``torch.save``: the
 model's and the optimizer's state dicts, the step count and the meta
 (epoch and the recorder's counters).  The JAX package's orbax checkpoints
 are not read here (ROADMAP.md A10: the converter needs orbax, so it lives
-outside the port).
+outside the port).  Across ranks only rank 0 writes; every rank reads.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import shutil
 from typing import Dict, Optional
 
 import torch
+
+from ..parallel import mesh as pmesh
 
 MAX_KEPT = 20
 STATE_FILE = "state.pt"
@@ -29,7 +31,9 @@ def save_checkpoint(model_dir: str, epoch: int, state, recorder_state: Dict,
                     latest: bool = True) -> None:
     """Write ``state`` (a ``TrainState``) as epoch ``epoch``; ``latest``
     also replaces the ``latest`` copy (staged, then renamed, so a reader
-    never sees half of it)."""
+    never sees half of it).  A no-op on ranks other than 0."""
+    if not pmesh.is_rank0():
+        return
     os.makedirs(model_dir, exist_ok=True)
     payload = {
         "model": state.model.state_dict(),

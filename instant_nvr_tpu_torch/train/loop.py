@@ -22,6 +22,12 @@
     (``eval/runner.py:evaluate_dataset``; ``metrics_epoch{n}.npy`` and
     ``comparison_epoch{n}/``), each skipped with a message when the split
     has no data.
+
+Across ranks (``parallel/mesh.py``, ``train_net --distributed``) every
+rank walks the same items, builds the same host batch and stages its own
+slice of the rays; every rank computes the prune cube; only rank 0 writes
+(the config dump, budgets, records, checkpoints, ``latest.npy``, the
+error map), and every rank waits for it before a resume reads them.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from ..eval.mesh import occupancy_grid
 from ..eval.runner import evaluate_dataset
 from ..models.budget import apply_auto_budget
 from ..models.lpips import perceptual_loss
+from ..parallel import mesh as pmesh
 from ..utils import native
 from .checkpoint import load_checkpoint, save_checkpoint
 from .recorder import Recorder
@@ -189,11 +196,13 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
     # on the card: TF32 off, so the VGG loss's cuDNN convolutions and the
     # matmuls run in float32 as the JAX package's do
     device = resolve_device(str(device))
-    if not resume:
+    rank0, world = pmesh.is_rank0(), pmesh.world_size()
+    if not resume and rank0:
         # a fresh run drops the budgets a previous run persisted
         for name in ("budgets.json", "eval_budgets.json*"):
             for path in glob.glob(os.path.join(cfg.trained_model_dir, name)):
                 os.remove(path)
+    pmesh.barrier()            # rank 0's files are as it left them
     native.load()              # a first build must not count as data wait
     cfg = apply_auto_budget(cfg)
     mspec, rspec, model = build(cfg, device, seed)
@@ -208,8 +217,9 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
         meta = load_checkpoint(cfg.trained_model_dir, state)
         if meta is not None:
             begin_epoch = int(meta["epoch"]) + 1
-    dump_cfg(cfg, cfg.result_dir)
-    recorder = Recorder(cfg.record_dir, resume=resume)
+    if rank0:
+        dump_cfg(cfg, cfg.result_dir)
+    recorder = Recorder(cfg.record_dir, resume=resume, enabled=rank0)
     if meta is not None:
         recorder.load_state_dict(meta)
         print(f"resumed from epoch {begin_epoch - 1} (step {state.step})")
@@ -244,7 +254,8 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
 
             rdw = ecfg.get("reg_dist_weight", 0.1)
             stager = DeviceStager(device, lambda item, put, _rdw=rdw: device_batch(
-                item, _rdw, put, cache=dev_cache))
+                pmesh.shard_batch(pmesh.pad_rays_to_multiple(item, world),
+                                  pmesh.rank(), world), _rdw, put, cache=dev_cache))
             pf = Prefetcher(produce, range(len(indices)), depth=8,
                             device_put=stager,
                             workers=max(1, int(cfg.train.num_workers)))
@@ -278,8 +289,9 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
                         if ds.error_map is None:
                             ds.init_error_map(int(item["H"]), int(item["W"]))
                             ds.load_error_map(cfg.result_dir)
-                        ds.update_error_map(item["coord"],
-                                            stats["ray_error"].cpu().numpy(),
+                        # every ray's error (reduce_stats), without padding
+                        err = stats["ray_error"][:len(item["coord"])]
+                        ds.update_error_map(item["coord"], err.cpu().numpy(),
                                             item["frame_index"], item["cam_ind"])
 
                     if t_start is None:
@@ -306,7 +318,8 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
                   f"{ep_wall:.1f}s wall "
                   f"({100.0 * ep_data_s / max(ep_wall, 1e-9):.1f}%)", flush=True)
 
-            if ecfg.get("sample_using_mse", False) and ds.error_map is not None:
+            if (ecfg.get("sample_using_mse", False) and ds.error_map is not None
+                    and rank0):
                 os.makedirs(cfg.result_dir, exist_ok=True)
                 ds.save_error_map(cfg.result_dir)
 
@@ -363,8 +376,9 @@ def _after_epoch(cfg: Config, mspec, rspec, model, epoch: int, item: Dict,
         occ, _ = occupancy_grid(cfg, mspec, model, item, deformed=False, res=128)
         for dset in datasets.values():
             dset.set_prune_geometry(occ)
-        os.makedirs(cfg.result_dir, exist_ok=True)
-        np.save(os.path.join(cfg.result_dir, "latest.npy"), occ)
+        if pmesh.is_rank0():
+            os.makedirs(cfg.result_dir, exist_ok=True)
+            np.save(os.path.join(cfg.result_dir, "latest.npy"), occ)
     t1 = time.time()
     if (epoch + 1) % cfg.eval_ep == 0:
         try:

@@ -39,6 +39,9 @@ class SmoothedValue:
 
 
 class Recorder:
+    """The run's smoothed stats and TensorBoard writer; ``enabled=False``
+    (the loop's ranks other than 0) keeps the stats and writes nothing."""
+
     def __init__(self, record_dir: str, resume: bool = True, enabled: bool = True):
         self.enabled = enabled
         self.step = 0

@@ -22,6 +22,13 @@ scene that ``bench.py`` uses (1,200 vertices, a 32^3 pose volume, a
 selects this run).  ``--tiny`` narrows the model (and the synthetic scene)
 to the widths of the CPU tests (``__graft_entry__._flagship(tiny=True)``).
 The device defaults to ``cuda`` and a missing card is an error.
+
+    torchrun --nproc_per_node 4 -m instant_nvr_tpu_torch.train_net --distributed ...
+
+runs one rank per card (``parallel/mesh.py``: NCCL, ``cuda:LOCAL_RANK``;
+``--device cpu`` makes Gloo ranks on the CPU): the same training run, its
+rays split over the ranks, rank 0 writing.  Without NCCL or a card it
+raises.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from .models import inb
+from .parallel import mesh as pmesh
 from .renderer.inb_renderer import RenderSpec
 from .train.state import TrainState, create_train_state
 from .train.step import LossWeights, make_loss_weights, make_train_step
@@ -100,14 +108,25 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=None,
                    help="steps of the synthetic run (implies --synthetic; "
                         "default 100)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one rank of a torch.distributed job (torchrun's "
+                        "environment): NCCL on cuda, Gloo on cpu")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
+    args = parse_args(argv)
+    if args.distributed:
+        with pmesh.distributed(args.device) as device:
+            _main(args, device)
+    else:
+        _main(args, None)
+
+
+def _main(args, device) -> None:
     from .config import default_config, finalize, load_yaml_config
     from .run import resolve_device
-    args = parse_args(argv)
     cfg = load_yaml_config(args.cfg_file, defaults=default_config())
     if args.tiny:   # the command line's opts still win over the tiny widths
         cfg = cfg.merged(TINY)
@@ -120,7 +139,7 @@ def main(argv=None) -> None:
             print(f"{name:60s} {str(tuple(p.shape)):>20s} {p.numel():>12,d}")
         print(f"total parameters: {total:,d}")
         return
-    device = resolve_device(args.device)
+    device = resolve_device(str(device or args.device))
     if args.synthetic or args.steps is not None:
         run_synthetic(cfg, device, 100 if args.steps is None else args.steps,
                       args.seed, args.tiny)
@@ -139,12 +158,14 @@ def main(argv=None) -> None:
 
 def run_synthetic(cfg, device: torch.device, steps: int, seed: int,
                   tiny: bool) -> None:
-    """``steps`` MSE steps on the fixed synthetic batch, one line a step."""
+    """``steps`` MSE steps on the fixed synthetic batch, one line a step
+    (across ranks, each steps on its slice of the batch)."""
     t = build_trainer(cfg, device, seed, tiny)
+    batch = pmesh.shard_batch(t.batch, pmesh.rank(), pmesh.world_size())
     gen = torch.Generator(device=device).manual_seed(seed)
     for i in range(steps):
         t0 = time.perf_counter()
-        _, stats = t.step(t.state, t.batch, generator=gen)
+        _, stats = t.step(t.state, batch, generator=gen)
         loss, psnr = float(stats["loss"]), float(stats["psnr"])   # waits
         ms = 1000.0 * (time.perf_counter() - t0)
         print(f"step {i}: loss {loss:.5f} psnr {psnr:.2f} {ms:.1f} ms "
