@@ -7,7 +7,8 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
   1. device: the card's name and power limit; TF32 off.
   2. build: compiles the port's CUDA kernels from this checkout's sources,
      one nvcc each, all at once; prints ptxas registers and spills; then
-     the data layer's native host library (``csrc/nvrhost.cpp``, g++).
+     the data layer's native host libraries (``csrc/nvrhost.cpp`` and the
+     image decoder ``instant_nvr_tpu_torch/csrc/imgdecode.cpp``, g++).
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      card, at the main paths' shapes, with median times over 20 runs, the
      time of one PyTorch library call for the same function where there is
@@ -93,8 +94,26 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      --distributed`` on phase 9's weights and budgets (5 items: shards of 3
      and 2), whose ``metrics.npy`` is held to phase 9's (PSNR within 1e-4
      dB, the rest 1e-6; bit-equality printed).
+ 11. real-subject slice: decodes every committed JPEG fixture
+     (``datasets/fixtures/jpeg``) to the sha256 its ``digests.json``
+     records (the refused kinds must raise naming the file) and prints the
+     host ms of a 1024^2 JPEG and of 1024^2 gray and RGB PNGs with every
+     row filter (the C++ unfilter beside the numpy loop it replaced); writes
+     the JPEG subject (``fake_zju.write_jpeg_subject``) and trains one
+     epoch of 10 full-width patch-LPIPS steps on it through ``loop.train``
+     with ``train.moment_dtype: bfloat16`` (finite losses, bf16 first
+     moments, launches against the routing; ms per step, data wait, peak
+     memory); trains the same epoch with float32 moments
+     (``torch.optim.Adam``) beside it and times one optimizer step of each
+     kind on the trained parameters (not counted in the launches); builds
+     a full-width reference-layout ``.pth`` from seeded
+     arrays, imports it with ``tools/import_torch_ckpt.py``'s command line,
+     checks the state ``load_weights`` reads against the mapping bit for
+     bit and renders one test item of the JPEG subject with it (one
+     ``knn_blend`` launch a chunk); runs ``tools/prepare_dataset.py`` on a
+     small synthetic SMPL model.
 Then one JSON line of kernel numbers (launches: the render, train,
-self-check, patch, evaluate and data-parallel phases together; a KNN row's times are the render
+self-check, patch, evaluate, data-parallel and real-subject phases together; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
@@ -1617,6 +1636,323 @@ def dp_slice(dev, knn, scatter):
     return per_rank
 
 
+REAL_ROOT = os.path.join(HERE, "data", "fake_zju_jpeg_smoke")
+REAL_DIR = os.path.join(HERE, "exps", "chip_smoke_real")
+REAL_STEPS = 10
+BIG_JPEG = "subject_1024_q95_420.jpg"      # a committed 1024^2 JPEG fixture
+
+
+def host_ms(fn, n=10):
+    """Median host wall ms of ``fn`` over ``n`` calls after one warm call."""
+    import numpy as np
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1000 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def write_filtered_png(path, img):
+    """``img`` (H, W) or (H, W, C) uint8 as a PNG whose rows cycle through
+    the five row filters (the port writes unfiltered PNGs only; capture
+    masks are filtered), so reading it runs every unfilter."""
+    import struct
+    import zlib
+    import numpy as np
+    H, W = img.shape[:2]
+    C = 1 if img.ndim == 2 else img.shape[2]
+    raw = img.reshape(H, W * C).astype(np.int32)
+    zc = np.zeros((H, C), np.int32)
+    up = np.vstack([np.zeros((1, W * C), np.int32), raw[:-1]])
+    left = np.hstack([zc, raw[:, :-C]])
+    ul = np.hstack([zc, up[:, :-C]])
+    p = left + up - ul
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    kind = np.arange(H) % 5
+    pred = np.choose(np.broadcast_to(kind[:, None], raw.shape),
+                     [np.zeros_like(raw), left, up, (left + up) >> 1, paeth])
+    rows = np.concatenate([kind[:, None], (raw - pred) & 255], 1).astype(np.uint8)
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+    ctype = {1: 0, 3: 2, 4: 6}[C]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def unfilter_numpy(rows, bpp):
+    """The PNG unfilter as the port's reader did it before the host decoder:
+    numpy, one anti-diagonal of pixels at a time (its plain version)."""
+    import numpy as np
+    H = rows.shape[0]
+    raw = rows[:, 1:].reshape(H, -1, bpp).astype(np.int32)
+    filters = rows[:, 0]
+    W = raw.shape[1]
+    X = np.zeros((H + 1, W + 1, bpp), np.int32)
+    for d in range(H + W - 1):
+        r = np.arange(max(0, d - W + 1), min(H, d + 1))
+        x = d - r
+        a, b, c = X[r + 1, x], X[r, x + 1], X[r, x]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        f = filters[r][:, None]
+        pred = np.select([f == 1, f == 2, f == 3, f == 4], [a, b, (a + b) >> 1, paeth], 0)
+        X[r + 1, x + 1] = (raw[r, x] + pred) & 0xFF
+    return X[1:, 1:].astype(np.uint8).reshape(H, -1)
+
+
+def synthetic_smpl(root, n_verts=300, seed=0):
+    """A small SMPL-like model pickle, two frames of SMPL params and
+    vertices under ``root`` and a UV .obj -> (pickle path, obj path)."""
+    import pickle
+    import numpy as np
+    import scipy.sparse
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n_verts, 3)) * [0.2, 0.5, 0.1]
+    faces = np.array([rng.choice(n_verts, 3, replace=False) for _ in range(2 * n_verts)])
+    w = rng.random((n_verts, 24))
+    w /= w.sum(1, keepdims=True)
+    jreg = rng.random((24, n_verts)) * (rng.random((24, n_verts)) < 0.1)
+    jreg /= np.maximum(jreg.sum(1, keepdims=True), 1e-9)
+    parents = np.concatenate([[4294967295], np.maximum(np.arange(23) - 2, 0)])
+    smpl = {"v_template": v, "shapedirs": rng.normal(size=(n_verts, 3, 10)) * 0.01,
+            "J_regressor": scipy.sparse.csc_matrix(jreg), "weights": w,
+            "kintree_table": np.stack([parents, np.arange(24)]).astype(np.int64),
+            "f": faces.astype(np.uint32)}
+    os.makedirs(root, exist_ok=True)
+    pkl = os.path.join(root, "smpl.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(smpl, f)
+    for d in ("smpl_params", "smpl_vertices"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    for i in range(2):
+        params = {"poses": rng.normal(size=(1, 72)) * 0.3, "Rh": rng.normal(size=(1, 3)),
+                  "Th": rng.normal(size=(1, 3)), "shapes": rng.normal(size=(1, 10))}
+        np.save(os.path.join(root, "smpl_params", f"{i}.npy"), params)
+        np.save(os.path.join(root, "smpl_vertices", f"{i}.npy"),
+                v + rng.normal(size=v.shape) * 0.01)
+    obj = os.path.join(root, "uv.obj")
+    with open(obj, "w") as f:
+        f.writelines(f"v {x} {y} {z}\n" for x, y, z in v)
+        f.writelines(f"vt {a:.6f} {b:.6f}\n" for a, b in rng.random((n_verts, 2)))
+        f.writelines(f"f {a + 1}/{a + 1} {b + 1}/{b + 1} {c + 1}/{c + 1}\n"
+                     for a, b, c in faces)
+    return pkl, obj
+
+
+def real_slice(dev, knn, scatter):
+    """Phase 11 (see the module doc).  Returns the launch counts of its
+    training run and render."""
+    import hashlib
+    import json
+    import shutil
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.datasets import fake_zju, image_ops, jpeg
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.eval import runner
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.tools import import_torch_ckpt, prepare_dataset
+    from instant_nvr_tpu_torch.train import checkpoint, loop
+    from instant_nvr_tpu_torch.train.state import AdamBf16Mu, make_optimizer
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    shutil.rmtree(REAL_DIR, ignore_errors=True)
+    os.makedirs(REAL_DIR)
+
+    # the committed JPEG fixtures against their recorded digests
+    fx = fake_zju.JPEG_FIXTURES
+    with open(os.path.join(fx, "digests.json")) as f:
+        digests = json.load(f)
+    for name, rec in digests["images"].items():
+        img = image_ops.read_image(os.path.join(fx, name))
+        got = [list(img.shape), hashlib.sha256(img.tobytes()).hexdigest()]
+        if got != [rec["shape"], rec["sha256"]]:
+            raise AssertionError(f"{name}: decoded {got} != recorded {rec}")
+    for name, what in digests["refused"].items():
+        try:
+            image_ops.read_image(os.path.join(fx, name))
+        except ValueError as e:
+            if name not in str(e) or what not in str(e):
+                raise AssertionError(f"{name}: refused with {e!r}, expected {what!r}")
+        else:
+            raise AssertionError(f"{name}: decoded; it must be refused ({what})")
+    # host decode times at 1024^2: the JPEG fixture, filtered PNGs
+    with open(os.path.join(fx, BIG_JPEG), "rb") as f:
+        data = f.read()
+    big = jpeg.decode_jpeg(data, BIG_JPEG)
+    jpeg_ms = host_ms(lambda: jpeg.decode_jpeg(data, BIG_JPEG))
+    pngs = {}
+    for kind, img in (("gray", big[..., 1]), ("rgb", big)):
+        path = os.path.join(REAL_DIR, f"filtered_{kind}.png")
+        write_filtered_png(path, img)
+        if not np.array_equal(image_ops.read_png(path), img):
+            raise AssertionError(f"filtered {kind} PNG does not read back")
+        # the unfilter alone: the C++ pass and the numpy loop it replaced
+        C = 1 if img.ndim == 2 else 3
+        rows = np.concatenate([(np.arange(img.shape[0]) % 5)[:, None].astype(np.uint8),
+                               img.reshape(img.shape[0], -1)], 1)
+        if not np.array_equal(jpeg.png_unfilter(rows, C), unfilter_numpy(rows, C)):
+            raise AssertionError(f"{kind}: the C++ unfilter differs from the numpy loop")
+        pngs[kind] = (host_ms(lambda: image_ops.read_png(path)),
+                      host_ms(lambda: jpeg.png_unfilter(rows, C)),
+                      host_ms(lambda: unfilter_numpy(rows, C), n=3))
+    phase("real-decode", images=len(digests["images"]), refused=len(digests["refused"]),
+          check="sha256 of the pixels == digests.json",
+          jpeg_1024_host_ms=f"{jpeg_ms:.2f}", jpeg_bytes=len(data),
+          **{f"png_1024_{k}_{what}_host_ms": f"{v[i]:.2f}" for k, v in pngs.items()
+             for i, what in enumerate(("read", "unfilter", "numpy_unfilter"))})
+
+    # the JPEG subject: one epoch of full-width patch-LPIPS steps with the
+    # bf16 first moment
+    t0 = time.perf_counter()
+    shutil.rmtree(REAL_ROOT, ignore_errors=True)
+    fake_zju.write_jpeg_subject(REAL_ROOT)
+    n = fake_zju.JPEG_SUBJECT["n_frames"]
+    cfg = patch_cfg(REAL_ROOT, REAL_DIR, epochs=1, num_train_frame=n, num_latent_code=n,
+                    training_view=[0], test_view=[1], ep_iter=REAL_STEPS,
+                    training_stages=[{"ratio": 0.5, "_start": 0}],
+                    train={"epoch": 1, "moment_dtype": "bfloat16"})
+    write_s = time.perf_counter() - t0
+    mspec, rspec = inb.build_model_spec(cfg), make_render_spec(cfg)
+    routes = table_grad_launches(mspec, rspec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(knn, scatter)
+    res = loop.train(cfg, dev, resume=False)
+    counts = check_patch_run("real-subject train", res, 0, routes, knn, scatter)
+    peak = torch.cuda.max_memory_allocated()
+    opt = res.state.optimizer
+    moments = [(st["exp_avg"].dtype, st["exp_avg_sq"].dtype) for st in opt.state.values()]
+    n_params = sum(1 for _ in res.state.model.parameters())
+    if not isinstance(opt, AdamBf16Mu) or not moments or \
+            set(moments) != {(torch.bfloat16, torch.float32)}:
+        raise AssertionError(f"moments {type(opt).__name__} {set(moments)} "
+                             f"for {len(moments)} of {n_params} parameters")
+    e = res.epochs[0]
+    phase("real-train", card=repr(nvidia_smi()), config="inb_fake (inb_377 widths)",
+          subject="JPEG fixtures, 2 views x 2 frames at 256^2, ratio 0.5",
+          write_s=f"{write_s:.2f}", steps=e.steps, rays=cfg.patch_size ** 2,
+          ms_per_step=f"{1000 * e.wall_s / e.steps:.2f}",
+          data_wait_share=f"{e.data_s / e.wall_s:.4f}",
+          moment_dtypes="exp_avg bfloat16, exp_avg_sq float32",
+          params_with_moments=f"{len(moments)}/{n_params}",
+          peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{res.losses[0]:.5f}",
+          loss_last=f"{res.losses[-1]:.5f}", launches=repr(counts))
+
+    # the same epoch with float32 moments, and one optimizer step of each
+    # kind on the trained parameters (seeded gradients), alternated
+    cfg32 = patch_cfg(REAL_ROOT, os.path.join(REAL_DIR, "f32"), epochs=1, num_train_frame=n,
+                      num_latent_code=n, training_view=[0], test_view=[1], ep_iter=REAL_STEPS,
+                      training_stages=[{"ratio": 0.5, "_start": 0}],
+                      train={"epoch": 1, "moment_dtype": "float32"})
+    reset_counts(knn, scatter)
+    res32 = loop.train(cfg32, dev, resume=False)
+    check_patch_run("real-subject train, float32 moments", res32, 0, routes, knn, scatter)
+    if type(res32.state.optimizer) is not torch.optim.Adam:
+        raise AssertionError(f"float32 moments: {type(res32.state.optimizer).__name__}")
+    e32 = res32.epochs[0]
+    del res32
+    model = res.state.model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=gen, device=dev, dtype=p.dtype) * 1e-3
+    opts = {"bf16": make_optimizer(cfg, model)[0], "f32": make_optimizer(cfg32, model)[0]}
+    opt_ms = {k: [] for k in opts}
+    for _ in range(3):
+        for k, o in opts.items():
+            opt_ms[k].append(cuda_median_ms(o.step))
+    phase("real-moments", card=repr(nvidia_smi()), steps=e32.steps,
+          ms_per_step_bf16=f"{1000 * e.wall_s / e.steps:.2f}",
+          ms_per_step_f32=f"{1000 * e32.wall_s / e32.steps:.2f}",
+          data_wait_share_f32=f"{e32.data_s / e32.wall_s:.4f}",
+          params=sum(p.numel() for p in model.parameters()), tensors=n_params,
+          opt_step_ms_bf16=[f"{t:.3f}" for t in opt_ms["bf16"]],
+          opt_step_ms_f32=[f"{t:.3f}" for t in opt_ms["f32"]])
+    del res, opt, opts, model
+
+    # a reference-layout .pth at full width from seeded arrays, imported
+    # through the tool's command line, loaded through load_weights
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    sd = {k: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+          for k, shape in import_torch_ckpt.reference_shapes(mspec).items()}
+    pth = os.path.join(REAL_DIR, "latest.pth")
+    torch.save({"net": {"net." + k: v for k, v in sd.items()}, "epoch": 0}, pth)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model_dir = os.path.join(REAL_DIR, "imported")
+    import_torch_ckpt.main(["--cfg_file", os.path.join(HERE, "configs", "inb", "inb_fake.yaml"),
+                            "--ckpt", pth, "--out", model_dir, "--epoch", "0",
+                            "num_latent_code", str(n)])
+    import_s = time.perf_counter() - t0
+    model = inb.InbModel(mspec, device=dev)
+    checkpoint.load_weights(model_dir, model, 0)
+    want = import_torch_ckpt.convert(sd, mspec, model.state_dict())
+    got = model.state_dict()
+    for k in want:
+        if not torch.equal(got[k].cpu(), want[k]):
+            raise AssertionError(f"imported {k} differs from the mapping")
+    occ = "tpose_human.part_networks.{}.occ.linears.0.weight"
+    for i in range(mspec.num_parts):        # the mapping itself, independently
+        if not torch.equal(got["occ.0.w"][i].cpu(), sd[occ.format(i)].T):
+            raise AssertionError(f"occ.0.w[{i}] is not the part's weight transposed")
+    dense = sd["tpose_human.part_networks.0.embedder.dense"].double().mean(-1)
+    np.testing.assert_allclose(got["embed.body.dense"].cpu().double().numpy(),
+                               dense.numpy(), rtol=1e-6, atol=1e-6)
+    floats = sum(v.numel() for v in sd.values())
+    del sd, want
+
+    # render one test item of the JPEG subject with the imported weights
+    reset_counts(knn, scatter)
+    item = TPoseDataset(cfg.replace(eval=True), "test").get_item(0)
+    renderer = runner.AutoBudgetRenderer(mspec, rspec, runner.eval_chunk(cfg))
+    t0 = time.perf_counter()
+    out = renderer(model, item)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    rays = out["rgb_map"].shape[0]
+    render = launch_counts(knn, scatter)
+    if render["knn_blend"] != renderer.chunks_rendered or render["knn_blend"] == 0 \
+            or render["segmented_scatter_add"] or render["onehot_scatter_add"]:
+        raise AssertionError(f"render launches {render}, chunks {renderer.chunks_rendered}")
+    rgb = out["rgb_map"]
+    # a composite of colours in [0, 1] whose weights sum to 1 up to rounding
+    if not (np.isfinite(rgb).all() and rgb.min() >= -1e-6 and rgb.max() <= 1 + 1e-6):
+        raise AssertionError(f"render rgb not finite in [0, 1]: [{rgb.min()}, {rgb.max()}]")
+    phase("real-import", ref_floats=floats, made_s=f"{made_s:.2f}",
+          import_s=f"{import_s:.2f}", check="loaded state == mapping, bit for bit",
+          render_rays=rays, render_chunks=renderer.chunks_rendered,
+          render_ms=f"{1000 * render_s:.1f}", knn_launches=render["knn_blend"],
+          rgb_range=f"[{rgb.min():.4f},{rgb.max():.4f}]")
+    counts = {k: counts[k] + render[k] for k in counts}
+    del model
+
+    # dataset preparation on a small synthetic SMPL model
+    prep = os.path.join(REAL_DIR, "prepare")
+    pkl, obj = synthetic_smpl(prep)
+    t0 = time.perf_counter()
+    prepare_dataset.main(["--data_root", prep, "--smpl_pkl", pkl, "--uv_obj", obj,
+                          "--frames", "0:2:1", "--voxel", "0.05"])
+    prep_s = time.perf_counter() - t0
+    vol = np.load(os.path.join(prep, "smpl_lbs", "bweights", "1.npy"))
+    uv = np.load(os.path.join(prep, "bigpose_uv.npy"))
+    if not (np.isfinite(vol).all() and np.allclose(vol[..., :24].sum(-1), 1, atol=1e-4)
+            and np.isfinite(uv).all()):
+        raise AssertionError("prepare_dataset: blend weights or UVs not valid")
+    phase("real-prepare", vertices=300, frames=2, voxel=0.05, bw_volume=list(vol.shape),
+          seconds=f"{prep_s:.2f}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1634,6 +1970,7 @@ def main() -> int:
     from instant_nvr_tpu_torch.ops import knn, scatter
     from instant_nvr_tpu_torch import cuda_build, run
     from instant_nvr_tpu_torch.utils import native
+    from instant_nvr_tpu_torch.datasets import jpeg
 
     # 1. device
     dev = run.resolve_device("cuda")            # also turns TF32 off
@@ -1655,10 +1992,12 @@ def main() -> int:
         phase("build", kernel=name, ptxas=repr(ptxas))
     phase("build", kernels=len(cuda_build.KERNELS),
           seconds=f"{time.perf_counter() - t0:.2f}")
-    # the data layer's native host library (g++), before any loader runs
+    # the data layer's native host libraries (g++), before any loader runs
     t0 = time.perf_counter()
     native.load()
+    jpeg.load()
     phase("build", host_library=os.path.relpath(native.library_path(), HERE),
+          image_decoder=os.path.relpath(jpeg.library_path(), HERE),
           seconds=f"{time.perf_counter() - t0:.2f}")
 
     # 3. kernel vs plain, at the render and train paths' shapes
@@ -1752,6 +2091,13 @@ def main() -> int:
     phase("dp-slice", seconds=f"{time.perf_counter() - t0:.1f}",
           launches_per_rank=repr(dp_launches))
     counts = {k: counts[k] + sum(r.get(k, 0) for r in dp_launches) for k in counts}
+
+    # 11. the real-subject slice: JPEG data, the bf16 moment, the .pth import
+    t0 = time.perf_counter()
+    real_launches = real_slice(dev, knn, scatter)
+    phase("real-slice", seconds=f"{time.perf_counter() - t0:.1f}",
+          launches=repr(real_launches))
+    counts = {k: counts[k] + real_launches[k] for k in counts}
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",

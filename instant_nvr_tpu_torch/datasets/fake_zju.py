@@ -10,12 +10,16 @@ run without the real dataset.  Images are written with
     python -m instant_nvr_tpu_torch.datasets.fake_zju data/fake_zju
 
 writes ``tools/make_fixtures.py``'s ``data/fake_zju`` recipe (3 views x 4
-frames at 512^2, 2,000 vertices).
+frames at 512^2, 2,000 vertices).  :func:`write_jpeg_subject` writes the
+subject of the committed JPEG fixtures (``fixtures/jpeg/subject``): the
+images of a 2-view x 2-frame subject at 256^2 as JPEG (q95, 4:2:0), the
+layout of a real capture.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 
 import numpy as np
 
@@ -25,6 +29,10 @@ from .synthetic import _fibonacci_sphere, _sphere_color, _textured_color
 from .tpose_dataset import schp_palette
 
 NUM_BONES = 24
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "fixtures", "jpeg")
+# the subject whose images fixtures/jpeg/subject holds as JPEG
+JPEG_SUBJECT = {"n_frames": 2, "n_views": 2, "H": 256, "W": 256}
 
 
 def write_fake_dataset(root: str, n_frames: int = 2, n_views: int = 2,
@@ -159,6 +167,24 @@ def write_fake_dataset(root: str, n_frames: int = 2, n_views: int = 2,
 
     np.save(os.path.join(root, "annots.npy"), {"cams": cams, "ims": ims})
     return {"root": root, "n_frames": n_frames, "n_views": n_views}
+
+
+def write_jpeg_subject(root: str, fixtures: str = JPEG_FIXTURES) -> dict:
+    """:func:`write_fake_dataset` at :data:`JPEG_SUBJECT`, its images then
+    replaced by the JPEG copies ``<fixtures>/subject/Cam<v>/<f>.jpg``
+    (``annots.npy`` names the ``.jpg`` files; the masks stay PNG)."""
+    out = write_fake_dataset(root, **JPEG_SUBJECT)
+    ann_path = os.path.join(root, "annots.npy")
+    ann = np.load(ann_path, allow_pickle=True).item()
+    for frame in ann["ims"]:
+        for j, rel in enumerate(frame["ims"]):
+            jrel = rel[:-4] + ".jpg"
+            shutil.copyfile(os.path.join(fixtures, "subject", jrel[len("images/"):]),
+                            os.path.join(root, jrel))
+            os.remove(os.path.join(root, rel))
+            frame["ims"][j] = jrel
+    np.save(ann_path, ann)
+    return out
 
 
 def fake_cfg_overrides(root: str, n_frames: int = 2) -> dict:

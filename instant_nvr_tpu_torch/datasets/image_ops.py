@@ -6,9 +6,13 @@ call it replaces in OpenCV's pixel conventions, so the port's dataset
 items match the JAX package's (``tests/test_torch_data.py`` holds them
 against cv2 and imageio):
 
+  - :func:`read_image`: a JPEG or a PNG, told apart by the file's magic
+    bytes, with the pixels of ``imageio.v2.imread`` (baseline JPEG through
+    ``jpeg.py``'s decoder, bit-equal to libjpeg-turbo);
   - :func:`read_png` / :func:`write_png`: 8-bit gray, RGB and RGBA PNG on
-    ``zlib`` + ``struct`` (``imageio.imread`` / ``cv2.imwrite``).  Anything
-    else, a JPEG included, raises naming the file;
+    ``zlib`` + ``struct``, the row filters undone by ``csrc/imgdecode.cpp``
+    (``imageio.imread`` / ``cv2.imwrite``).  Anything else, a JPEG
+    included, raises naming the file;
   - :func:`rodrigues` (``cv2.Rodrigues``, vector -> matrix);
   - :func:`resize_nearest` / :func:`resize_area` (``cv2.resize`` with
     ``INTER_NEAREST`` / ``INTER_AREA``);
@@ -24,6 +28,8 @@ import zlib
 import numpy as np
 from scipy import ndimage
 
+from . import jpeg
+
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}           # PNG colour type -> channels
 
@@ -34,30 +40,26 @@ _CHANNELS = {0: 1, 2: 3, 6: 4}           # PNG colour type -> channels
 
 def _unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
     """Undo the per-row PNG filters.  raw (H, W, bpp) uint8 filtered bytes,
-    filters (H,) in 0..4 -> the image bytes.  Sub, Average and Paeth depend
-    on the pixel to the left and the rows above, so the rows are decoded
-    one anti-diagonal of pixels at a time (every pixel of a diagonal
-    depends only on earlier diagonals)."""
+    filters (H,) in 0..4 -> the image bytes (``jpeg.png_unfilter``, one C++
+    pass over the rows)."""
     H, W, _ = raw.shape
     if not filters.any():                        # no filter (write_png's files)
         return raw
-    # X[r + 1, x + 1] is pixel (r, x); row 0 and column 0 are the zero border
-    X = np.zeros((H + 1, W + 1, bpp), np.int32)
-    raw = raw.astype(np.int32)
-    for d in range(H + W - 1):
-        r = np.arange(max(0, d - W + 1), min(H, d + 1))
-        x = d - r
-        a = X[r + 1, x]                               # left
-        b = X[r, x + 1]                               # up
-        c = X[r, x]                                   # up-left
-        p = a + b - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        f = filters[r][:, None]
-        pred = np.select([f == 1, f == 2, f == 3, f == 4],
-                         [a, b, (a + b) >> 1, paeth], 0)
-        X[r + 1, x + 1] = (raw[r, x] + pred) & 0xFF
-    return X[1:, 1:].astype(np.uint8)
+    rows = np.concatenate([filters.reshape(H, 1).astype(np.uint8),
+                           raw.reshape(H, W * bpp)], 1)
+    return jpeg.png_unfilter(rows, bpp).reshape(H, W, bpp)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file as ``imageio.v2.imread`` returns it: a baseline JPEG
+    (uint8 (H, W, 3) or (H, W)) or an 8-bit PNG (:func:`read_png`), told
+    apart by the magic bytes, not the name.  Raises ``ValueError`` naming
+    the file for anything else."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:3] == jpeg.JPEG_MAGIC:
+        return jpeg.decode_jpeg(data, str(path))
+    return read_png(path)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -66,9 +68,9 @@ def read_png(path: str) -> np.ndarray:
     file for anything else (JPEG, palette, 16-bit or interlaced PNG)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:3] == b"\xff\xd8\xff":
-        raise ValueError(f"{path}: a JPEG image; the port reads PNG only (no "
-                         "JPEG decoder without cv2/imageio/PIL: ROADMAP.md)")
+    if data[:3] == jpeg.JPEG_MAGIC:
+        raise ValueError(f"{path}: a JPEG image, not a PNG (read_image "
+                         "decodes both)")
     if data[:8] != _PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None

@@ -14,10 +14,11 @@ The on-disk contract is the reference loader's:
   smpl_meta/: faces.npy, parents.npy, weights.npy
 
 Image decoding, undistortion, resizing, the box mask and the mask
-morphology go through ``image_ops`` (numpy and scipy) in place of OpenCV
-and imageio, with the same pixels.  Images must be PNG: a JPEG raises
-(real ZJU captures are JPEG; ROADMAP.md lists the decoder).  The items are
-numpy, as the JAX package's are; the train loop moves them to the device.
+morphology go through ``image_ops`` (numpy, scipy and the host decoder
+``csrc/imgdecode.cpp``) in place of OpenCV and imageio, with the same
+pixels.  Images are JPEG (real captures) or PNG, told apart by their bytes;
+masks are PNG, as in the JAX package.  The items are numpy, as the JAX
+package's are; the train loop moves them to the device.
 """
 from __future__ import annotations
 
@@ -403,7 +404,7 @@ class TPoseDataset:
 
         cfg = self.cfg
         cam_ind = self.cam_inds[index]
-        img = image_ops.read_png(
+        img = image_ops.read_image(
             os.path.join(self.data_root, self.ims[index])).astype(np.float32) / 255.0
         msk, orig_msk, sem_masks = self.get_mask(index)
         H0, W0 = img.shape[:2]

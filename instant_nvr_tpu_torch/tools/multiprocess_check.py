@@ -411,7 +411,7 @@ if __name__ == "__main__":
         w = argparse.ArgumentParser()
         w.add_argument("case")
         w.add_argument("workdir")
-        w.add_argument("--device", default="cpu")
+        w.add_argument("--device", required=True)    # launch() names it
         w.add_argument("--backend", default=None)
         a = w.parse_args(sys.argv[2:])
         _worker(a.case, a.workdir, a.device, a.backend)

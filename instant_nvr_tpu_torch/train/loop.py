@@ -49,6 +49,7 @@ from ..models.budget import apply_auto_budget
 from ..models.lpips import perceptual_loss
 from ..parallel import mesh as pmesh
 from ..utils import native
+from ..utils.intervals import busy_us
 from .checkpoint import load_checkpoint, save_checkpoint
 from .recorder import Recorder
 from .stages import stage_for_epoch
@@ -174,15 +175,9 @@ def _device_seconds(events) -> Optional[float]:
     annotation ranges drawn on the device timeline are left out), or None
     when the trace holds no device event."""
     from torch.autograd import DeviceType
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    us, end = 0.0, None
-    for lo, hi in spans:
-        if end is None or lo > end:
-            us, end = us + hi - lo, hi
-        elif hi > end:
-            us, end = us + hi - end, hi
+    us = busy_us([(e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)])
     return us / 1e6 if us > 0 else None
 
 

@@ -36,27 +36,37 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+def host_library_path(source: Path) -> Path:
+    """``build/torch_kernels/lib<stem>_<hash>.so`` of a host C++ source."""
+    h = hashlib.sha256(Path(source).read_bytes())
     h.update(" ".join(FLAGS + (platform.node(), platform.machine())).encode())
-    return BUILD_DIR / f"libnvrhost_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile ``csrc/nvrhost.cpp`` unless this exact build exists; raises
-    with the compiler's output if it fails."""
-    so = library_path()
+def build_host_library(source: Path) -> Path:
+    """Compile a host C++ source with g++ unless this exact build exists;
+    raises with the compiler's output if it fails."""
+    so = host_library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = ["g++", *FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = ["g++", *FLAGS, "-o", str(tmp), str(source)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"building {Path(source).name} failed:\n{' '.join(cmd)}\n"
                            f"{res.stdout}{res.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def library_path() -> Path:
+    return host_library_path(SOURCE)
+
+
+def build() -> Path:
+    """Compile ``csrc/nvrhost.cpp`` unless this exact build exists."""
+    return build_host_library(SOURCE)
 
 
 def load() -> ctypes.CDLL:

@@ -324,14 +324,18 @@ def test_pruned_sampling_matches_jax(subjects):
 
 
 def test_jpeg_images_raise(subjects, tmp_path):
+    """Baseline JPEG images are decoded (tests/test_torch_jpeg.py,
+    tests/test_torch_realdata.py); a kind the decoder refuses raises naming
+    the file, with no fallback reader."""
     import shutil
     root = str(tmp_path / "jpeg_subject")
     shutil.copytree(subjects["port"], root)
     path = os.path.join(root, "images", "Cam0", "0000.png")
     img = imageio.imread(path)
-    cv2.imencode(".jpg", img)[1].tofile(path)          # JPEG bytes, .png name
+    # progressive JPEG bytes under a .png name
+    cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tofile(path)
     _, cp = _cfgs(root)
-    with pytest.raises(ValueError, match="0000.png: a JPEG image"):
+    with pytest.raises(ValueError, match="0000.png: progressive JPEG is not supported"):
         TPoseDataset(cp, "train").get_item(0, rng=np.random.default_rng(0))
 
 

@@ -363,6 +363,22 @@ cfg = make_cfg("configs/inb/inb_fake.yaml").merged(train_net.TINY).merged({
     "result_dir": exp, "trained_model_dir": exp + "/model", "record_dir": exp + "/rec"})
 res = loop.train(cfg, torch.device("cpu"), resume=False)
 assert len(res.losses) == 1 and res.state.step == 1, res
+# a committed JPEG fixture decodes to its digest, and a JPEG subject's item
+import hashlib, json
+import numpy as np
+from instant_nvr_tpu_torch.datasets import fake_zju, image_ops
+with open(os.path.join(fake_zju.JPEG_FIXTURES, "digests.json")) as f:
+    digests = json.load(f)["images"]
+name = "subject/Cam0/0000.jpg"
+img = image_ops.read_image(os.path.join(fake_zju.JPEG_FIXTURES, name))
+assert hashlib.sha256(img.tobytes()).hexdigest() == digests[name]["sha256"]
+jroot = root + "_jpeg"
+fake_zju.write_jpeg_subject(jroot)
+jdata = {"data_root": jroot, "ann_file": os.path.join(jroot, "annots.npy")}
+item = TPoseDataset(cfg.merged({"train_dataset": jdata,
+                                "smpl_meta": os.path.join(jroot, "smpl-meta")}),
+                    "train").get_item(0, rng=np.random.default_rng(0))
+assert item["rgb"].shape[-1] == 3 and np.isfinite(item["rgb"]).all()
 bad = sorted(m for m in sys.modules if sys.modules[m] is not None
              and m.split(".")[0] in ("cv2", "imageio", "PIL", "jax", "jaxlib",
                                      "instant_nvr_tpu"))
@@ -372,6 +388,8 @@ print("ok", res.losses[0])
 
 
 def test_loop_runs_without_cv2_imageio_pil_or_jax(tmp_path):
+    """One training step, a JPEG fixture decoded to its digest and one item
+    of the JPEG subject, with cv2, imageio, PIL and jax blocked."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", GUARD, str(tmp_path / "subject"),
                           str(tmp_path / "exp")], cwd=ROOT, env=env,

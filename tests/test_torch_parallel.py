@@ -499,6 +499,19 @@ def test_distributed_never_falls_back(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+def test_the_worker_needs_a_device_named(tmp_path):
+    """The worker subcommand that ``launch`` starts has no default device
+    (it used to default to the CPU): without ``--device`` it exits before
+    it runs anything."""
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-m", "instant_nvr_tpu_torch.tools.multiprocess_check",
+                          "worker", "mse", str(tmp_path)], cwd=mc.ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 2 and "--device" in res.stderr, res.stderr[-2000:]
+
+
 def test_the_standalone_check(tmp_path):
     """``python -m instant_nvr_tpu_torch.tools.multiprocess_check``'s own
     assertions: 2 ranks against one process, the merge, the broadcast."""

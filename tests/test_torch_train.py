@@ -715,9 +715,13 @@ def test_unported_training_options_raise():
     # patch losses and remat are ported (tests/test_torch_patch.py)
     tstep.make_train_step(c.mspec, c.rspec, c.lw, patch_loss_fn=lambda r, b: 0)
     tstep.make_train_step(c.mspec, c.rspec, c.lw._replace(remat=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstate.make_optimizer(c.cfg.merged({"train": {"moment_dtype": "bfloat16"}}),
-                              c.model())
+    # the bf16 first moment is ported (tests/test_torch_realdata.py); an
+    # unknown optimizer still raises
+    opt, _ = tstate.make_optimizer(c.cfg.merged({"train": {"moment_dtype": "bfloat16"}}),
+                                   c.model())
+    assert isinstance(opt, tstate.AdamBf16Mu)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        tstate.make_optimizer(c.cfg.merged({"train": {"optim": "lamb"}}), c.model())
 
 
 # -- bridge and entry point ------------------------------------------------------
