@@ -112,8 +112,24 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      bit and renders one test item of the JPEG subject with it (one
      ``knn_blend`` launch a chunk); runs ``tools/prepare_dataset.py`` on a
      small synthetic SMPL model.
+ 12. orbax slice (the JAX package's checkpoints, ``train/orbax_format.py``):
+     decodes the committed zstd corpus (``train/fixtures/orbax``, chunks
+     tensorstore wrote at levels 1-22) to its digests with the host library
+     ``instant_nvr_tpu_torch/csrc/zstd.cpp`` and prints the decode MB/s
+     (median of 10) on its 5 largest frames; reads the two committed
+     JAX-trained tiny checkpoints (float32 and bf16 moments), every leaf to
+     its digest, loads each through ``load_weights`` on the card and holds
+     its render of the committed 256 rays to JAX's ``expected.npz`` at
+     phase 4b's tolerance; writes a full-width JAX-layout checkpoint of
+     seeded arrays (params, Adam's mu and nu, 8 zero rows a table, step,
+     meta) with ``tools/make_fixtures.py``'s writer and prints its read
+     time, MB/s and traced host peak; resumes ``loop.train`` from it for
+     10 patch steps of phase 8's subject (parameters, moments, step and
+     epoch bit-equal to the written arrays before the first step; launches
+     as routed); evaluates one test item at that epoch through ``run.load``
+     (one ``knn_blend`` launch a chunk), printing ms and peak memory.
 Then one JSON line of kernel numbers (launches: the render, train,
-self-check, patch, evaluate, data-parallel and real-subject phases together; a KNN row's times are the render
+self-check, patch, evaluate, data-parallel, real-subject and orbax phases together, each row also with ``orbax_launches``; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
@@ -1953,6 +1969,267 @@ def real_slice(dev, knn, scatter):
     return counts
 
 
+ORBAX_DIR = os.path.join(HERE, "exps", "chip_smoke_orbax")
+ORBAX_FIXTURES = os.path.join(HERE, "instant_nvr_tpu_torch", "train", "fixtures", "orbax")
+ORBAX_STEP = 20               # the step and Adam count of the full-width checkpoint
+ORBAX_PAD = 8                 # zero tile-padding rows added to every table
+
+
+def leaf_digests(tree):
+    """{dotted key path: sha256, shape, dtype} of a read orbax tree (bf16
+    leaves by their bits), as ``digests.json`` records them."""
+    import hashlib
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.train import orbax_format
+    out = {}
+    for path, _, v in orbax_format.leaves(tree):
+        if v is None:
+            continue
+        if isinstance(v, torch.Tensor):
+            x, dt = v.view(torch.uint16).numpy(), "bfloat16"
+        else:
+            x, dt = np.asarray(v), np.asarray(v).dtype.name
+        out[".".join(path)] = {"sha256": hashlib.sha256(np.ascontiguousarray(x).tobytes())
+                               .hexdigest(), "shape": list(x.shape), "dtype": dt}
+    return out
+
+
+def seeded_jax_tree(mspec, dev):
+    """A full-width JAX-layout train state from seeded arrays: the port's
+    seed-0 parameters and seeded Adam moments as JAX parameter trees, every
+    table with ORBAX_PAD zero rows, step and count ORBAX_STEP, meta epoch 0.
+    Returns (tree, params, mu, nu) with the unpadded trees."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import bridge
+    from instant_nvr_tpu_torch.models import inb
+    params = bridge.tree_from_model(inb.init_params(
+        mspec, torch.Generator(device=dev).manual_seed(0), dev))
+    rng = np.random.default_rng(0)
+
+    def like(tree, f):
+        if isinstance(tree, dict):
+            return {k: like(v, f) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [like(v, f) for v in tree]
+        return f(tree)
+    mu = like(params, lambda a: rng.standard_normal(a.shape, dtype=np.float32) * 1e-4)
+    nu = like(params, lambda a: np.abs(rng.standard_normal(a.shape, dtype=np.float32)) * 1e-6)
+
+    def pad(tree):
+        out = like(tree, lambda a: a)
+        tables = [out["embed"][p] for p in out["embed"]] + [out["deformer"]["embed"]]
+        for t in tables:
+            for k in ("dense", "hash"):
+                t[k] = np.concatenate([t[k], np.zeros((ORBAX_PAD,) + t[k].shape[1:],
+                                                      t[k].dtype)])
+        return out
+    count = np.asarray(ORBAX_STEP, np.int32)
+    tree = {"params": pad(params),
+            "opt_state": [{"count": count, "mu": pad(mu), "nu": pad(nu)}, {"count": count}],
+            "step": count, "meta": {"epoch": np.asarray(0, np.int64),
+                                    "step": np.asarray(ORBAX_STEP, np.int64)}}
+    return tree, params, mu, nu
+
+
+def orbax_slice(dev, knn, scatter):
+    """Phase 12 (see the module doc).  Returns the launch counts of its
+    renders, resumed steps and evaluation."""
+    import hashlib
+    import json
+    import shutil
+    import tracemalloc
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import bridge, run, train_net
+    from instant_nvr_tpu_torch.config import make_cfg
+    from instant_nvr_tpu_torch.datasets import synthetic
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.eval import runner
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer import inb_renderer as rend
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.tools.make_fixtures import write_orbax_checkpoint
+    from instant_nvr_tpu_torch.train import checkpoint, loop, orbax_format
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    shutil.rmtree(ORBAX_DIR, ignore_errors=True)
+    os.makedirs(ORBAX_DIR)
+    with open(os.path.join(ORBAX_FIXTURES, "digests.json")) as f:
+        digests = json.load(f)
+
+    # the zstd corpus that tensorstore wrote, to its digests; the host
+    # decode rate on the largest frames
+    frames = {}
+    for name, rec in digests["corpus"].items():
+        with open(os.path.join(ORBAX_FIXTURES, "corpus", name), "rb") as f:
+            data = f.read()
+        out = np.empty(rec["size"], np.uint8)
+        orbax_format.decompress_into(data, out, name)
+        if hashlib.sha256(out).hexdigest() != rec["sha256"]:
+            raise AssertionError(f"corpus {name}: decoded bytes differ from the digest")
+        frames[name] = (data, out)
+    largest = sorted(frames, key=lambda n: (frames[n][1].nbytes, n))[-5:]
+    rates = {}
+    for name in largest:
+        data, out = frames[name]
+        ms = host_ms(lambda: orbax_format.decompress_into(data, out, name))
+        rates[name] = out.nbytes / ms / 1e3
+    phase("orbax-corpus", frames=len(frames), check="sha256 of the decoded bytes == digests.json",
+          largest_bytes=frames[largest[-1]][1].nbytes,
+          decode_MBps={n: f"{r:.1f}" for n, r in rates.items()},
+          decode_MBps_median=f"{float(np.median(list(rates.values()))):.1f}")
+
+    # the committed checkpoints the JAX package wrote: every leaf to its
+    # digest, load_weights on the card, the committed rays against JAX's
+    exp = np.load(os.path.join(ORBAX_FIXTURES, "expected.npz"))
+    sc = digests["scene"]
+    scene = synthetic.make_scene(n_verts=sc["n_verts"], grid=sc["grid"])
+    batch = synthetic.make_batch(scene, synthetic.render_gt(scene, H=sc["H"], W=sc["W"]),
+                                 n_rays=sc["n_rays"])
+    for k in ("ray_o", "ray_d", "near", "far"):
+        if not np.array_equal(batch[k], exp[k]):
+            raise AssertionError(f"the scene's {k} differ from the committed rays")
+    batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in batch.items()}
+    tiny = make_cfg(CFG).merged(train_net.TINY)
+    reset_counts(knn, scatter)
+    errs = {}
+    for name, rec in sorted(digests["checkpoints"].items()):
+        tree = orbax_format.read_checkpoint(os.path.join(ORBAX_FIXTURES, name, "0"), None)
+        if leaf_digests(tree) != rec:
+            raise AssertionError(f"{name}: leaves differ from digests.json")
+        mspec, rspec, model = run.build(tiny, dev)
+        checkpoint.load_weights(os.path.join(ORBAX_FIXTURES, name), model)
+        with torch.no_grad():
+            out = rend.render_rays(mspec, rspec, model, batch, train=False)
+        for k, key in (("rgb_map", "rgb"), ("acc_map", "acc")):
+            got, want = out[k].cpu().numpy(), exp[f"{name}_{key}"]
+            # phase 4b's tolerance, card against JAX's CPU render
+            np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3, err_msg=f"{name} {k}")
+            errs[f"{name}_{key}"] = float(np.abs(got - want).max())
+    tiny_counts = launch_counts(knn, scatter)
+    if tiny_counts["knn_blend"] < len(digests["checkpoints"]) or \
+            tiny_counts["segmented_scatter_add"] or tiny_counts["onehot_scatter_add"]:
+        raise AssertionError(f"tiny renders launched {tiny_counts}")
+    phase("orbax-tiny", checkpoints=sorted(digests["checkpoints"]), rays=sc["n_rays"],
+          leaves=sum(len(r) for r in digests["checkpoints"].values()),
+          check="leaves == digests.json; render vs JAX's expected.npz rtol=atol=1e-3",
+          max_abs_err={k: f"{v:.2e}" for k, v in errs.items()},
+          knn_launches=tiny_counts["knn_blend"])
+
+    # a full-width JAX-layout checkpoint from seeded arrays, written by the
+    # port's writer, read back: time and host memory of the read
+    root = os.path.join(HERE, "data", "fake_zju_smoke")          # phase 8's subject
+    cfg = patch_cfg(root, ORBAX_DIR, epochs=2)
+    mspec = inb.build_model_spec(cfg)
+    tree, params, mu, nu = seeded_jax_tree(mspec, dev)
+    path = os.path.join(cfg.trained_model_dir, "0")
+    t0 = time.perf_counter()
+    write_orbax_checkpoint(path, tree)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(np.asarray(v).nbytes for _, _, v in orbax_format.leaves(tree))
+    floats = sum(np.asarray(v).size for p, _, v in orbax_format.leaves(tree) if p[0] == "params")
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    back = orbax_format.read_checkpoint(path, None)
+    read_s = time.perf_counter() - t0
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    if leaf_digests(back) != leaf_digests(tree):
+        raise AssertionError("the full-width checkpoint does not read back leaf for leaf")
+    del back
+    t0 = time.perf_counter()
+    orbax_format.read_checkpoint(path, ("params",))
+    params_s = time.perf_counter() - t0
+    phase("orbax-full", card=repr(nvidia_smi()), config="inb_fake (inb_377 widths)",
+          param_floats=floats, leaves=len(list(orbax_format.leaves(tree))),
+          bytes=nbytes, pad_rows=ORBAX_PAD, write_s=f"{write_s:.2f}",
+          read_s=f"{read_s:.3f}", read_MBps=f"{nbytes / read_s / 1e6:.1f}",
+          read_peak_traced_MB=f"{peak / 1e6:.1f}", params_only_read_s=f"{params_s:.3f}")
+
+    # resume loop.train from it: step, epoch and moments bit for bit before
+    # the first step, then 10 full-width patch-LPIPS steps
+    want_sd = bridge.params_from_jax(params, mspec)
+    want_mu, want_nu = bridge.params_from_jax(mu, mspec), bridge.params_from_jax(nu, mspec)
+    load = loop.load_checkpoint
+    checked = {}
+
+    def check_resume(model_dir, state, epoch=None):
+        meta = load(model_dir, state, epoch)
+        if meta != {"epoch": 0, "step": ORBAX_STEP} or state.step != ORBAX_STEP:
+            raise AssertionError(f"resumed meta {meta}, step {state.step}")
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        for n, v in state.model.state_dict().items():
+            if not torch.equal(v.cpu(), want_sd[n]):
+                raise AssertionError(f"resumed parameter {n} differs from the written one")
+        for p, st in state.optimizer.state.items():
+            n = names[id(p)]
+            if not (torch.equal(st["exp_avg"].cpu(), want_mu[n])
+                    and torch.equal(st["exp_avg_sq"].cpu(), want_nu[n])
+                    and int(st["step"]) == ORBAX_STEP):
+                raise AssertionError(f"resumed moments of {n} differ from the written ones")
+        checked["tensors"] = len(state.optimizer.state)
+        return meta
+    routes = table_grad_launches(mspec, make_render_spec(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(knn, scatter)
+    loop.load_checkpoint = check_resume
+    try:
+        res = loop.train(cfg, dev, resume=True)
+    finally:
+        loop.load_checkpoint = load
+    counts = check_patch_run("orbax resume", res, 1, routes, knn, scatter)
+    if checked.get("tensors") != sum(1 for _ in res.state.model.parameters()):
+        raise AssertionError(f"resume checked {checked} moment tensors")
+    if res.state.step != ORBAX_STEP + len(res.losses) or len(res.losses) != PATCH_EPOCH_STEPS:
+        raise AssertionError(f"resumed run: step {res.state.step}, {len(res.losses)} steps")
+    e = res.epochs[0]
+    phase("orbax-resume", card=repr(nvidia_smi()), resumed_epoch=e.epoch,
+          from_step=ORBAX_STEP, steps=e.steps, rays=cfg.patch_size ** 2,
+          check="params, exp_avg, exp_avg_sq, step == written, bit for bit",
+          ms_per_step=f"{1000 * e.wall_s / e.steps:.2f}",
+          data_wait_share=f"{e.data_s / e.wall_s:.4f}",
+          peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+          loss_first=f"{res.losses[0]:.5f}", loss_last=f"{res.losses[-1]:.5f}",
+          routes_per_step=repr(dict(routes)), launches=repr(counts))
+    del res
+
+    # evaluate one test item through run.load on the same directory, at
+    # the JAX-layout epoch
+    ecfg = cfg.merged({"test": {"epoch": 0}}).replace(eval=True)
+    reset_counts(knn, scatter)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    emspec, erspec, model = run.load(ecfg, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for n, v in model.state_dict().items():
+        if not torch.equal(v.cpu(), want_sd[n]):
+            raise AssertionError(f"run.load: {n} is not the JAX-layout epoch's")
+    item = TPoseDataset(ecfg, "test").get_item(0)
+    renderer = runner.AutoBudgetRenderer(emspec, erspec, runner.eval_chunk(ecfg))
+    t0 = time.perf_counter()
+    out = renderer(model, item)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    ev = launch_counts(knn, scatter)
+    if ev["knn_blend"] != renderer.chunks_rendered or ev["knn_blend"] == 0 \
+            or ev["segmented_scatter_add"] or ev["onehot_scatter_add"]:
+        raise AssertionError(f"eval launches {ev}, chunks {renderer.chunks_rendered}")
+    rgb = out["rgb_map"]
+    if not (np.isfinite(rgb).all() and rgb.min() >= -1e-6 and rgb.max() <= 1 + 1e-6):
+        raise AssertionError(f"eval rgb not finite in [0, 1]: [{rgb.min()}, {rgb.max()}]")
+    phase("orbax-eval", card=repr(nvidia_smi()), epoch=0, layout=checkpoint.layout(path),
+          load_s=f"{load_s:.3f}", rays=rgb.shape[0], chunks=renderer.chunks_rendered,
+          render_ms=f"{1000 * render_s:.1f}", knn_launches=ev["knn_blend"],
+          peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
+          rgb_range=f"[{rgb.min():.4f},{rgb.max():.4f}]")
+    del model
+    return {k: tiny_counts[k] + counts[k] + ev[k] for k in counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1971,6 +2248,7 @@ def main() -> int:
     from instant_nvr_tpu_torch import cuda_build, run
     from instant_nvr_tpu_torch.utils import native
     from instant_nvr_tpu_torch.datasets import jpeg
+    from instant_nvr_tpu_torch.train import orbax_format
 
     # 1. device
     dev = run.resolve_device("cuda")            # also turns TF32 off
@@ -1996,8 +2274,10 @@ def main() -> int:
     t0 = time.perf_counter()
     native.load()
     jpeg.load()
+    orbax_format.load()
     phase("build", host_library=os.path.relpath(native.library_path(), HERE),
           image_decoder=os.path.relpath(jpeg.library_path(), HERE),
+          zstd_decoder=os.path.relpath(orbax_format.library_path(), HERE),
           seconds=f"{time.perf_counter() - t0:.2f}")
 
     # 3. kernel vs plain, at the render and train paths' shapes
@@ -2099,6 +2379,14 @@ def main() -> int:
           launches=repr(real_launches))
     counts = {k: counts[k] + real_launches[k] for k in counts}
 
+    # 12. the JAX package's orbax checkpoints: the corpus, the committed
+    #     tiny checkpoints against JAX, a full-width resume and evaluation
+    t0 = time.perf_counter()
+    orbax_launches = orbax_slice(dev, knn, scatter)
+    phase("orbax-slice", seconds=f"{time.perf_counter() - t0:.1f}",
+          launches=repr(orbax_launches))
+    counts = {k: counts[k] + orbax_launches[k] for k in counts}
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -2155,6 +2443,7 @@ def main() -> int:
     for r in rows:
         # phase 10's launches in each rank (rank 0's with the NCCL rank's)
         r["dp_launches_per_rank"] = [d.get(r["name"], 0) for d in dp_launches]
+        r["orbax_launches"] = orbax_launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -168,6 +168,7 @@ class InbModel(nn.Module):
         self.latent = nn.Parameter(torch.empty(
             (P, spec.num_latent, spec.latent_dim), device=device))
         self.deformer = Deformer(spec.deformer, device)
+        self.spec = spec
 
 
 def init_params(spec: ModelSpec, generator: torch.Generator,
