@@ -75,7 +75,8 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      times the res-128 occupancy cube on the card and marching tetrahedra
      on the host, writes ``latest.npy`` and the two meshes, holds the res-32
      cube card vs CPU (atol 1e-5); renders 4 bullet-time views at 512^2
-     (PNGs; an mp4 only where ffmpeg exists); then trains a fourth epoch
+     (PNGs and an mp4: ffmpeg's where it exists, else the port's mp4v
+     writer's, read back with ``eval/video.py:read_mp4``); then trains a fourth epoch
      with ``eval_ep``, ``vis_ep`` and ``prune_using_geo`` at 1 and checks
      their artifacts, printing the epoch's steps, cube and validation time.
  10. data-parallel slice (``instant_nvr_tpu_torch/parallel``), through
@@ -128,6 +129,30 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      epoch bit-equal to the written arrays before the first step; launches
      as routed); evaluates one test item at that epoch through ``run.load``
      (one ``knn_blend`` launch a chunk), printing ms and peak memory.
+ 13. completion slice, at inb_377's widths on phase 8's subject: (a)
+     ``select_mode: partition``: 10 patch steps with every budget ample and
+     10 with the cull and part budgets cut until both overflow (checked by
+     the telemetry of one train-mode render), one partition patch step
+     card vs CPU (phase 6's tolerances), and one 256^2 test item of phase
+     9's weights rendered under partition and under topk (rgb within 1e-5:
+     the same selected set); (b) a full-width JAX-layout checkpoint under
+     radam whose big tables are stored packed (``flat.reshape(-1, 128)``),
+     written by ``tools/make_fixtures.py``'s writer and resumed for 3 steps
+     (parameters, both moments and the step bit-equal before the first);
+     (c) ``fix_random``: the sorted kernel (``csrc/sorted_scatter.cu``)
+     against its plain version on uniform body-hash keys, the body-hash,
+     deformer-hash and arm-dense records of one train step, an F = 16
+     case and phase 3's pileup, hot-row, out-of-range and [1c] cases (times,
+     bound and ``index_add_`` beside it; twice bit-equal; rows bit-equal or
+     one bf16 ulp from the plain version on the CPU, which adds in record
+     order; bit-equal where the sums are exact), whether ``index_add_`` (an
+     exact table's route under ``fix_random``) is deterministic under
+     ``use_deterministic_algorithms``, two 10-step
+     ``fix_random`` patch runs from one seed whose parameters must be bit-equal
+     (every table gradient through the sorted kernel), and 3 full-width
+     steps of ``train_net --detect_anomaly``; (d) phase 9's bullet views
+     written as an mp4 by the port's writer (bytes, encode ms a frame) and
+     read back with its own reader.
 Then one JSON line of kernel numbers (launches: the render, train,
 self-check, patch, evaluate, data-parallel, real-subject and orbax phases together, each row also with ``orbax_launches``; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
@@ -138,7 +163,9 @@ steps, and a row on the patch path its times on the patch step's own
 inputs as ``patch_shape_*``; ``knn_blend`` also has its launches per eval
 frame as read in the second evaluation, ``eval_frame_launches``, and its times on one eval chunk's own
 inputs as ``eval_shape_*``; every row has phase 10's launches in each
-rank, ``dp_launches_per_rank``, which ``launches`` includes),
+rank, ``dp_launches_per_rank``, and phase 13's, ``completion_launches``,
+which ``launches`` includes; the sorted kernel's row, phase 13's only,
+has its uniform-keys case with the train step's records beside it),
 the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -694,6 +721,7 @@ def reset_counts(knn, scatter):
     knn.knn_topk.launches = 0
     scatter.segmented_scatter_add.launches = 0
     scatter.onehot_scatter_add.launches = 0
+    scatter.sorted_scatter_add.launches = 0
     scatter.exact_scatter_add.calls = 0
 
 
@@ -961,9 +989,14 @@ def check_patch_run(label, res, first_epoch, routes, knn, scatter):
     want = {"knn_blend": steps, "knn_topk": 0,
             "segmented_scatter_add": steps * routes["segmented"],
             "onehot_scatter_add": steps * routes["onehot"]}
-    if got != want or routes["exact"] or scatter.exact_scatter_add.calls:
-        raise AssertionError(f"{label}: launches {got} != {want} (exact "
-                             f"index_add_ calls {scatter.exact_scatter_add.calls})")
+    sorted_got, sorted_want = scatter.sorted_scatter_add.launches, steps * routes["sorted"]
+    if got != want or sorted_got != sorted_want or routes["exact"] \
+            or scatter.exact_scatter_add.calls:
+        raise AssertionError(f"{label}: launches {got} != {want}, sorted {sorted_got} != "
+                             f"{sorted_want} (exact index_add_ calls "
+                             f"{scatter.exact_scatter_add.calls})")
+    if sorted_want:
+        got["sorted_scatter_add"] = sorted_got
     return got
 
 
@@ -1066,7 +1099,7 @@ def patch_kernel_cases(calls, knn, scatter):
     return out
 
 
-def card_vs_cpu_patch_step(cfg, dev):
+def card_vs_cpu_patch_step(cfg, dev, label="patch-cuda-vs-cpu"):
     """One full-width patch step at patch_size 16 (256 rays), card vs CPU,
     same weights, batch and draws, at the train-cuda-vs-cpu tolerances."""
     import numpy as np
@@ -1100,7 +1133,7 @@ def card_vs_cpu_patch_step(cfg, dev):
     (loss_c, pl_c, grad_c, par_c), (loss_g, pl_g, grad_g, par_g) = out
     worst, moved = compare_step(loss_g, loss_c, grad_g, grad_c, par_g, par_c,
                                 cfg.train.lr)
-    phase("patch-cuda-vs-cpu", rays=256, loss_card=f"{loss_g:.6f}",
+    phase(label, card=repr(nvidia_smi()), rays=256, loss_card=f"{loss_g:.6f}",
           loss_cpu=f"{loss_c:.6f}", lpips_card=f"{pl_g:.6f}", lpips_cpu=f"{pl_c:.6f}",
           worst_grad_rel_l2=f"{worst:.3e}", params_differing=moved,
           tol=repr("loss rtol 1e-3; grads bf16-sized; params <= 2.1 lr"))
@@ -1236,7 +1269,7 @@ def eval_slice(dev, knn, scatter):
     import torch
     from instant_nvr_tpu_torch import run
     from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
-    from instant_nvr_tpu_torch.eval import evaluator, mesh, runner
+    from instant_nvr_tpu_torch.eval import evaluator, mesh, runner, video
     from instant_nvr_tpu_torch.tools import profile_eval
     from instant_nvr_tpu_torch.train import checkpoint, loop
     from instant_nvr_tpu_torch.train.step import table_grad_launches
@@ -1395,9 +1428,13 @@ def eval_slice(dev, knn, scatter):
     bullet_s = time.perf_counter() - t0
     if len(frames) != 4 or not all(os.path.isfile(f) for f in frames):
         raise AssertionError(f"bullet: frames {frames}")
+    # ffmpeg's mp4 where it runs, else the port's mp4v writer's
+    mp4 = video.read_mp4(os.path.join(cfg.result_dir, "novel_view.mp4"))
+    if len(mp4["sample_sizes"]) != 4 or (mp4["width"], mp4["height"]) != (512, 512):
+        raise AssertionError(f"bullet mp4: {mp4['sample_sizes']} {mp4['width']}x{mp4['height']}")
     phase("bullet", views=4, side=512, ms_per_view=f"{1000 * bullet_s / 4:.1f}",
           pngs=len(frames), ffmpeg=shutil.which("ffmpeg") is not None,
-          mp4=os.path.isfile(os.path.join(cfg.result_dir, "novel_view.mp4")))
+          mp4_codec=mp4["codec"], mp4_samples=len(mp4["sample_sizes"]))
 
     # the loop's cadence: a fourth epoch of 10 steps with validation,
     # visualization and the pruning cube after it
@@ -1973,6 +2010,9 @@ ORBAX_DIR = os.path.join(HERE, "exps", "chip_smoke_orbax")
 ORBAX_FIXTURES = os.path.join(HERE, "instant_nvr_tpu_torch", "train", "fixtures", "orbax")
 ORBAX_STEP = 20               # the step and Adam count of the full-width checkpoint
 ORBAX_PAD = 8                 # zero tile-padding rows added to every table
+# the JAX package's packed storage: tables from kernel_min_rows rows up (the
+# TPU's 190,000), padded to its scatter kernel's 65,536-row tile
+JAX_PACK_ROWS, JAX_TILE_ROWS = 190_000, 65536
 
 
 def leaf_digests(tree):
@@ -1995,10 +2035,14 @@ def leaf_digests(tree):
     return out
 
 
-def seeded_jax_tree(mspec, dev):
+def seeded_jax_tree(mspec, dev, packed=False):
     """A full-width JAX-layout train state from seeded arrays: the port's
     seed-0 parameters and seeded Adam moments as JAX parameter trees, every
     table with ORBAX_PAD zero rows, step and count ORBAX_STEP, meta epoch 0.
+    ``packed``: a table the JAX package stores packed (F < 128 features,
+    128 % F == 0, from JAX_PACK_ROWS rows up) is padded with zero rows to
+    its JAX_TILE_ROWS tile and stored as ``flat.reshape(-1, 128)``
+    (``instant_nvr_tpu/ops/hashgrid.py:_is_packed``, ``_pad_rows``).
     Returns (tree, params, mu, nu) with the unpadded trees."""
     import numpy as np
     import torch
@@ -2022,8 +2066,13 @@ def seeded_jax_tree(mspec, dev):
         tables = [out["embed"][p] for p in out["embed"]] + [out["deformer"]["embed"]]
         for t in tables:
             for k in ("dense", "hash"):
-                t[k] = np.concatenate([t[k], np.zeros((ORBAX_PAD,) + t[k].shape[1:],
+                rows, F = t[k].shape[0], (t[k].shape[1] if t[k].ndim == 2 else 0)
+                pack = packed and 0 < F < 128 and 128 % F == 0 and rows >= JAX_PACK_ROWS
+                n_pad = -rows % JAX_TILE_ROWS if pack else ORBAX_PAD
+                t[k] = np.concatenate([t[k], np.zeros((n_pad,) + t[k].shape[1:],
                                                       t[k].dtype)])
+                if pack:
+                    t[k] = t[k].reshape(-1, 128)
         return out
     count = np.asarray(ORBAX_STEP, np.int32)
     tree = {"params": pad(params),
@@ -2230,12 +2279,382 @@ def orbax_slice(dev, knn, scatter):
     return {k: tiny_counts[k] + counts[k] + ev[k] for k in counts}
 
 
+# table-gradient launches of a flagship patch step under fix_random: the
+# 8 segmented and 10 one-hot routes all become the sorted kernel
+FIX_ROUTES_PER_STEP = 18
+PARTITION_AMPLE = {"cull_budget": 1.0, "part_budget": 1.0,
+                   "part_budget_scales": [1.0] * 5}
+PARTITION_SCARCE = {"cull_budget": 0.05, "part_budget": 0.02}
+PACKED_STEPS = 3
+FIX_STEPS = PATCH_EPOCH_STEPS
+
+
+def step_telemetry(cfg, model, dev):
+    """The budget telemetry of one train-mode render of a ratio-0.3 patch
+    item of the subject (one ``knn_blend`` launch)."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer import inb_renderer as rend
+    from instant_nvr_tpu_torch.train import loop
+    from instant_nvr_tpu_torch.train.stages import stage_for_epoch
+    ecfg = stage_for_epoch(cfg, 0)
+    item = TPoseDataset(ecfg, "train").get_item(0, ratio=ecfg.ratio,
+                                                rng=np.random.default_rng(5))
+    batch = loop.device_batch(item, 0.1, lambda v: torch.as_tensor(np.asarray(v), device=dev))
+    with torch.no_grad():
+        out = rend.render_rays(inb.build_model_spec(cfg), rend.make_render_spec(cfg), model,
+                               batch, train=True,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    return {k: float(out[k]) for k in ("cull_overflow", "part_overflow")}
+
+
+def sorted_case(name, keys, payload, n_rows, offs, scatter, exact=False):
+    """``sorted_scatter_add`` against its plain version: ``scatter_case``'s
+    check on the card (the plain version's ``index_add_`` adds in any order
+    there) and its times; then the plain version on the CPU, which adds each
+    row in record order: rows bit-equal, rows one bf16 ulp off (the kernel's
+    fixed tree order), none further beyond the f32 reordering bound (with
+    ``exact``, sums exact in any order: every row bit-equal); and two
+    launches bit-equal.  Returns scatter_case's result and the rows off."""
+    import torch
+    fns = (scatter.sorted_scatter_add, scatter.sorted_scatter_add_plain)
+    res = scatter_case(name, *fns, keys, payload, n_rows, offs, exact)
+    got = scatter.sorted_scatter_add(keys, payload, n_rows, offs)
+    again = scatter.sorted_scatter_add(keys, payload, n_rows, offs)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError(f"{name}: two launches differ")
+    ref = scatter.sorted_scatter_add_plain(keys.cpu(), payload.cpu(), n_rows, offs)
+    g, r = got.cpu().float(), ref.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    diff = (g - r).abs()
+    keep = (keys >= 0) & (keys < n_rows)
+    k = keys[keep].long().cpu()
+    count = torch.zeros(n_rows).index_add_(0, k, torch.ones(k.shape[0]))
+    mass = torch.zeros_like(g).index_add_(0, k, payload[keep].float().abs().cpu())
+    bad = diff > ulp + count[:, None] * 2.0 ** -24 * mass
+    if exact:
+        bad |= diff > 0
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} entries beyond "
+                             f"{'0' if exact else 'one bf16 ulp'}")
+    rows_off = int((diff > 0).any(-1).sum())
+    phase("sorted-vs-cpu", card=repr(nvidia_smi()), case=name, rows=n_rows,
+          rows_touched=int((count > 0).sum()),
+          rows_bit_equal=n_rows - rows_off, rows_one_ulp=rows_off,
+          check="kernel twice bit-equal; vs the CPU plain version in record order: "
+                + ("bit-equal" if exact else "bit-equal or one bf16 ulp"))
+    return res + (rows_off,)
+
+
+def completion_slice(dev, knn, scatter):
+    """Phase 13 (see the module doc).  Returns (the launch counts of its
+    main-path runs, the sorted kernel's results: uniform keys first)."""
+    import glob
+    import shutil
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import bridge, run, train_net
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.eval import runner, video
+    from instant_nvr_tpu_torch.datasets.image_ops import read_png
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.tools.make_fixtures import write_orbax_checkpoint
+    from instant_nvr_tpu_torch.config import make_cfg
+    from instant_nvr_tpu_torch.train import loop, orbax_format
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    root = os.path.join(HERE, "data", "fake_zju_smoke")          # phase 8's subject
+    total = {k: 0 for k in ("knn_blend", "knn_topk", "segmented_scatter_add",
+                            "onehot_scatter_add", "sorted_scatter_add")}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # (a) select_mode: partition -- 10 patch steps with every budget ample,
+    #     then with the cull and part budgets forced to overflow
+    for label, budgets in (("ample", PARTITION_AMPLE), ("scarce", PARTITION_SCARCE)):
+        exp = os.path.join(HERE, "exps", f"chip_smoke_partition_{label}")
+        shutil.rmtree(exp, ignore_errors=True)
+        cfg = patch_cfg(root, exp, epochs=1, select_mode="partition", **budgets)
+        routes = table_grad_launches(inb.build_model_spec(cfg), make_render_spec(cfg))
+        reset_counts(knn, scatter)
+        res = loop.train(cfg, dev, resume=False)
+        add(check_patch_run(f"partition {label}", res, 0, routes, knn, scatter))
+        reset_counts(knn, scatter)
+        tel = step_telemetry(cfg, res.state.model, dev)
+        add(launch_counts(knn, scatter))
+        overflow = tel["cull_overflow"] > 0 and tel["part_overflow"] > 0
+        if overflow != (label == "scarce") or (label == "ample" and any(tel.values())):
+            raise AssertionError(f"partition {label}: telemetry {tel}")
+        e = res.epochs[0]
+        phase("partition-train", card=repr(nvidia_smi()), budgets=label, steps=e.steps,
+              ms_per_step=f"{1000 * e.wall_s / e.steps:.2f}",
+              loss_first=f"{res.losses[0]:.5f}", loss_last=f"{res.losses[-1]:.5f}",
+              cull_overflow=f"{tel['cull_overflow']:.4f}",
+              part_overflow=f"{tel['part_overflow']:.4f}",
+              knn_launches=res.epochs[0].steps)
+        del res
+    card_vs_cpu_patch_step(patch_cfg(root, os.path.join(HERE, "exps", "chip_smoke_partition_ample"),
+                                     epochs=1, select_mode="partition", **PARTITION_AMPLE),
+                           dev, label="partition-cuda-vs-cpu")
+    # a 256^2 test item of phase 9's weights under partition and under topk
+    exp = os.path.join(HERE, "exps", "chip_smoke_patch")
+    rgbs = {}
+    for mode in ("partition", "topk"):
+        ecfg = patch_cfg(root, exp, epochs=3, select_mode=mode).replace(eval=True)
+        emspec, erspec, model = run.load(ecfg, dev)
+        item = TPoseDataset(ecfg, "test").get_item(0)
+        renderer = runner.AutoBudgetRenderer(emspec, erspec, runner.eval_chunk(ecfg))
+        reset_counts(knn, scatter)
+        t0 = time.perf_counter()
+        out = renderer(model, item)
+        torch.cuda.synchronize()
+        ms = 1000 * (time.perf_counter() - t0)
+        ev = launch_counts(knn, scatter)
+        if ev["knn_blend"] != renderer.chunks_rendered or ev["segmented_scatter_add"] \
+                or ev["onehot_scatter_add"] or scatter.sorted_scatter_add.launches:
+            raise AssertionError(f"{mode} render launches {ev}, "
+                                 f"chunks {renderer.chunks_rendered}")
+        add(ev)
+        rgbs[mode] = out["rgb_map"]
+        phase("partition-eval", card=repr(nvidia_smi()), select_mode=mode,
+              rays=len(out["rgb_map"]),
+              chunks=renderer.chunks_rendered, knn_launches=ev["knn_blend"],
+              render_ms=f"{ms:.1f}")
+        del model
+    diff = float(np.abs(rgbs["partition"] - rgbs["topk"]).max())
+    phase("partition-vs-topk", card=repr(nvidia_smi()), rays=len(rgbs["topk"]),
+          max_abs_diff=f"{diff:.3e}",
+          tol="atol 1e-5 (the same selected set, in another slot order)")
+    if not np.isfinite(rgbs["partition"]).all() or diff > 1e-5:
+        raise AssertionError(f"partition render differs from topk's by {diff}")
+
+    # (b) a full-width JAX-layout checkpoint under radam with packed tables,
+    #     resumed for 3 steps with the moments bit-equal before the first
+    exp = os.path.join(HERE, "exps", "chip_smoke_packed")
+    shutil.rmtree(exp, ignore_errors=True)
+    cfg = patch_cfg(root, exp, epochs=2, ep_iter=PACKED_STEPS,
+                    train={"epoch": 2, "optim": "radam"})
+    mspec = inb.build_model_spec(cfg)
+    tree, params, mu, nu = seeded_jax_tree(mspec, dev, packed=True)
+    packed = [".".join(p) for p, _, v in orbax_format.leaves(tree)
+              if p[0] == "params" and np.ndim(v) == 2 and np.shape(v)[1] == 128]
+    if not packed:
+        raise AssertionError("no table stored packed")
+    t0 = time.perf_counter()
+    write_orbax_checkpoint(os.path.join(cfg.trained_model_dir, "0"), tree)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(np.asarray(v).nbytes for _, _, v in orbax_format.leaves(tree))
+    del tree
+    want_sd = bridge.params_from_jax(params, mspec)
+    want_mu, want_nu = bridge.params_from_jax(mu, mspec), bridge.params_from_jax(nu, mspec)
+    del params, mu, nu
+    load, checked = loop.load_checkpoint, {}
+
+    def check_resume(model_dir, state, epoch=None):
+        t = time.perf_counter()
+        meta = load(model_dir, state, epoch)
+        checked["load_s"] = time.perf_counter() - t
+        if meta != {"epoch": 0, "step": ORBAX_STEP} or state.step != ORBAX_STEP:
+            raise AssertionError(f"packed resume: meta {meta}, step {state.step}")
+        if not isinstance(state.optimizer, torch.optim.RAdam):
+            raise AssertionError(f"packed resume: {type(state.optimizer).__name__}")
+        names = {id(p): n for n, p in state.model.named_parameters()}
+        for n, v in state.model.state_dict().items():
+            if not torch.equal(v.cpu(), want_sd[n]):
+                raise AssertionError(f"packed resume: parameter {n} differs")
+        for p, st in state.optimizer.state.items():
+            n = names[id(p)]
+            if not (torch.equal(st["exp_avg"].cpu(), want_mu[n])
+                    and torch.equal(st["exp_avg_sq"].cpu(), want_nu[n])
+                    and int(st["step"]) == ORBAX_STEP):
+                raise AssertionError(f"packed resume: moments of {n} differ")
+        checked["tensors"] = len(state.optimizer.state)
+        return meta
+    routes = table_grad_launches(mspec, make_render_spec(cfg))
+    reset_counts(knn, scatter)
+    loop.load_checkpoint = check_resume
+    try:
+        res = loop.train(cfg, dev, resume=True)
+    finally:
+        loop.load_checkpoint = load
+    add(check_patch_run("packed resume", res, 1, routes, knn, scatter))
+    if checked.get("tensors") != sum(1 for _ in res.state.model.parameters()) \
+            or len(res.losses) != PACKED_STEPS:
+        raise AssertionError(f"packed resume: checked {checked}, {len(res.losses)} steps")
+    e = res.epochs[0]
+    phase("packed-resume", card=repr(nvidia_smi()), optim="radam",
+          packed_tables=len(packed), param_floats=sum(v.numel() for v in want_sd.values()),
+          bytes=nbytes, write_s=f"{write_s:.2f}", load_s=f"{checked['load_s']:.2f}",
+          steps=e.steps, ms_per_step=f"{1000 * e.wall_s / e.steps:.2f}",
+          check="params, exp_avg, exp_avg_sq, step == written, bit for bit",
+          loss_first=f"{res.losses[0]:.5f}", loss_last=f"{res.losses[-1]:.5f}",
+          routes_per_step=repr(dict(routes)))
+    del res, want_sd, want_mu, want_nu
+    shutil.rmtree(exp, ignore_errors=True)
+
+    # (c) fix_random: the sorted kernel on one step's records and on
+    #     uniform keys; two runs from one seed bit-equal; --detect_anomaly
+    cfg377 = make_cfg(CFG)
+    mspec377 = inb.build_model_spec(cfg377)
+    body = mspec377.part_embeds[mspec377.partnames.index("body")]
+    arm = mspec377.part_embeds[mspec377.partnames.index("larm")]
+    deformer = mspec377.deformer.embed
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    bf = lambda a: t(a.astype(np.float32)).to(torch.bfloat16)
+    _, body_rows, body_offs = body.tables()[-1]
+    R = (len(body_offs) - 1) * 8 * 8192
+    results = [sorted_case("body-hash", t(level_keys(rng, body_offs, 8 * 8192)),
+                           t(rng.normal(size=(R, 1)).astype(np.float32)).to(torch.bfloat16),
+                           body_rows, body_offs, scatter)]
+    calls = capture_train_records(cfg377, dev)
+    _, def_rows, def_offs = deformer.tables()[-1]
+    _, arm_rows, arm_offs = arm.tables()[0]
+    for name, rows, offs in (("body-hash-real", body_rows, body_offs),
+                             ("deformer-hash-real", def_rows, def_offs),
+                             ("arm-dense-real", arm_rows, arm_offs)):
+        keys, payload = max(((k, p) for r, k, p, n, o in calls
+                             if n == rows and o == tuple(offs)),
+                            key=lambda kp: kp[0].shape[0])
+        results.append(sorted_case(name, keys, payload, rows, offs, scatter))
+    del calls
+    R = 4 * 65536
+    results.append(sorted_case("F16", t(rng.integers(0, 50000, R).astype(np.int32)),
+                               t(rng.normal(size=(R, 16)).astype(np.float32)).to(torch.bfloat16),
+                               50000, (0, 50000), scatter))
+    # phase 3's edge cases: every record on one key (R not a multiple of
+    # 32, one run over 3,126 windows), a hot coarse level (small-integer
+    # payloads: exact), 10% of the keys outside the table, and the
+    # self-check's [1c] shape (more records than one grid covers)
+    R = 100003
+    offs4 = tuple(range(0, 4 * 50000 + 1, 50000))
+    results.append(sorted_case("pileup", t(np.full(R, 123457, np.int32)),
+                               bf(rng.integers(-8, 9, size=(R, 1))), offs4[-1], offs4,
+                               scatter, exact=True))
+    hot = (0, 8, 8 + 16411)
+    results.append(sorted_case("hot-row", t(level_keys(rng, hot, 131072)),
+                               bf(rng.integers(-8, 9, size=(2 * 131072, 1))), hot[-1], hot,
+                               scatter, exact=True))
+    keys = level_keys(rng, def_offs, 8 * 22528)
+    out = rng.random(len(keys)) < 0.1
+    keys[out] = rng.choice(np.array([-(2 ** 31), -7, -1, def_rows, def_rows + 5,
+                                     2 ** 31 - 1], np.int64), int(out.sum()))
+    results.append(sorted_case("out-of-range", t(keys), bf(rng.normal(size=(len(keys), 1))),
+                               def_rows, def_offs, scatter))
+    results.append(sorted_case("selfcheck-1c-F2", t(level_keys(rng, (0, 12276), 1081344)),
+                               bf(rng.normal(size=(1081344, 2))), 12276, (0, 12276), scatter))
+    # index_add_ under use_deterministic_algorithms: the exact route's call
+    # (an exact float32 table keeps it under fix_random)
+    R = 4 * 65536
+    keys = t(rng.integers(0, 20000, R).astype(np.int32))
+    pay = t(rng.normal(size=(R, 1)).astype(np.float32))
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        a = scatter.exact_scatter_add(keys, pay, 20000)
+        b = scatter.exact_scatter_add(keys, pay, 20000)
+        index_add_det = bool(torch.equal(a, b))
+    except RuntimeError as err:
+        index_add_det = f"raises: {str(err).splitlines()[0][:120]}"
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    phase("index-add-deterministic", card=repr(nvidia_smi()), R=R,
+          index_add_deterministic_under_the_flag=repr(index_add_det))
+    if index_add_det is not True:
+        raise AssertionError(f"index_add_ under the deterministic flag: {index_add_det}")
+
+    reset_counts(knn, scatter)
+    runs, fix_per_step = [], []
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        for name in ("a", "b"):
+            exp = os.path.join(HERE, "exps", f"chip_smoke_fix_random_{name}")
+            shutil.rmtree(exp, ignore_errors=True)
+            cfg = patch_cfg(root, exp, epochs=1, fix_random=True)
+            if not train_net.apply_fix_random(cfg):
+                raise AssertionError("fix_random not applied")
+            routes = table_grad_launches(inb.build_model_spec(cfg), make_render_spec(cfg))
+            if routes != {"sorted": FIX_ROUTES_PER_STEP}:
+                raise AssertionError(f"fix_random routes {routes}")
+            reset_counts(knn, scatter)
+            res = loop.train(cfg, dev, resume=False, seed=0)
+            got = check_patch_run(f"fix_random {name}", res, 0, routes, knn, scatter)
+            add(got)
+            fix_per_step.append(got["sorted_scatter_add"] / len(res.losses))
+            runs.append((res.losses, {k: v.detach().clone()
+                                      for k, v in res.state.model.state_dict().items()},
+                         1000 * res.epochs[0].wall_s / res.epochs[0].steps))
+            del res
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+    (la, pa, ms_a), (lb, pb, ms_b) = runs
+    differing = [k for k in pa if not torch.equal(pa[k].view(torch.int32)
+                                                  if pa[k].dtype == torch.float32 else pa[k],
+                                                  pb[k].view(torch.int32)
+                                                  if pb[k].dtype == torch.float32 else pb[k])]
+    phase("fix-random", card=repr(nvidia_smi()), runs=2, steps=len(la),
+          routes_per_step=repr(dict(routes)), ms_per_step=[f"{ms_a:.2f}", f"{ms_b:.2f}"],
+          losses_equal=la == lb, params_differing=differing,
+          check="every parameter bit-equal after both runs")
+    if la != lb or differing:
+        raise AssertionError(f"fix_random runs differ: losses {la} vs {lb}, {differing}")
+    del runs, pa, pb
+
+    reset_counts(knn, scatter)
+    try:
+        train_net.main(["--cfg_file", CFG, "--steps", "3", "--detect_anomaly"])
+    finally:
+        torch.autograd.set_detect_anomaly(False)
+    got = launch_counts(knn, scatter)
+    mroutes = table_grad_launches(mspec377, make_render_spec(cfg377))
+    want = {"knn_blend": 3, "knn_topk": 0, "segmented_scatter_add": 3 * mroutes["segmented"],
+            "onehot_scatter_add": 3 * mroutes["onehot"]}
+    if got != want:
+        raise AssertionError(f"--detect_anomaly run launches {got} != {want}")
+    add(got)
+    phase("detect-anomaly", card=repr(nvidia_smi()), steps=3, launches=repr(got),
+          check="3 full-width steps ran")
+
+    # (d) the phase-9 bullet views as an mp4 by the port's writer
+    names = sorted(glob.glob(os.path.join(HERE, "exps", "chip_smoke_patch", "novel_views",
+                                          "frame_*.png")))
+    if len(names) < 4:
+        raise AssertionError(f"bullet frames: {names}")
+    frames = [read_png(n)[..., :3] for n in names]
+    out = os.path.join(HERE, "exps", "chip_smoke_patch", "bullet_mp4v.mp4")
+    t0 = time.perf_counter()
+    info = video.write_mp4(out, frames, fps=24)
+    enc_s = time.perf_counter() - t0
+    mp4 = video.read_mp4(out)
+    if (len(mp4["sample_sizes"]) != len(frames) or mp4["codec"] != "mp4v"
+            or (mp4["width"], mp4["height"]) != frames[0].shape[1::-1]
+            or mp4["fps"] != 24.0 or min(mp4["sample_sizes"]) <= 0):
+        raise AssertionError(f"mp4 read back: {mp4}")
+    phase("mp4v", card=repr(nvidia_smi()), frames=len(frames),
+          size=f"{frames[0].shape[1]}x{frames[0].shape[0]}", fps=24, bytes=info["bytes"],
+          encode_ms_per_frame=f"{1000 * enc_s / len(frames):.1f}",
+          sample_sizes=mp4["sample_sizes"], codec=mp4["codec"], brand=mp4["brand"])
+    return total, results, fix_per_step
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this smoke run needs "
               "a CUDA card", file=sys.stderr)
         return 1
+    # phase 13c's fix_random runs: cuBLAS reads its workspace setting once,
+    # at its first handle, so it is set here as train_net's fix_random sets
+    # it before its first step
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     sys.path.insert(0, HERE)
     import numpy as np
     import instant_nvr_tpu_torch
@@ -2249,6 +2668,7 @@ def main() -> int:
     from instant_nvr_tpu_torch.utils import native
     from instant_nvr_tpu_torch.datasets import jpeg
     from instant_nvr_tpu_torch.train import orbax_format
+    from instant_nvr_tpu_torch.eval import video
 
     # 1. device
     dev = run.resolve_device("cuda")            # also turns TF32 off
@@ -2264,6 +2684,7 @@ def main() -> int:
     knn.load_topk_kernel()
     scatter.load_segmented_kernel()
     scatter.load_onehot_kernel()
+    scatter.load_sorted_kernel()
     for name in cuda_build.KERNELS:
         ptxas = [ln.strip() for ln in cuda_build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -2275,9 +2696,11 @@ def main() -> int:
     native.load()
     jpeg.load()
     orbax_format.load()
+    video.load()
     phase("build", host_library=os.path.relpath(native.library_path(), HERE),
           image_decoder=os.path.relpath(jpeg.library_path(), HERE),
           zstd_decoder=os.path.relpath(orbax_format.library_path(), HERE),
+          video_encoder=os.path.relpath(video.library_path(), HERE),
           seconds=f"{time.perf_counter() - t0:.2f}")
 
     # 3. kernel vs plain, at the render and train paths' shapes
@@ -2387,11 +2810,20 @@ def main() -> int:
           launches=repr(orbax_launches))
     counts = {k: counts[k] + orbax_launches[k] for k in counts}
 
+    # 13. the completed modules: partition mode, packed JAX tables,
+    #     fix_random on the sorted kernel, --detect_anomaly, the mp4 writer
+    t0 = time.perf_counter()
+    completion_launches, sorted_res, fix_per_step = completion_slice(dev, knn, scatter)
+    phase("completion-slice", card=repr(nvidia_smi()),
+          seconds=f"{time.perf_counter() - t0:.1f}",
+          launches=repr(completion_launches))
+    counts = {k: counts.get(k, 0) + v for k, v in completion_launches.items()}
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
                 "replaces": f"instant_nvr_tpu/ops/pallas/{replaces}",
-                "launches": counts[name], "max_abs_err": err, "ms": ms,
+                "launches": counts.get(name, 0), "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "bounded_by": bnd[1], "library_ms": library_ms}
     # no single PyTorch call computes a per-part 4-NN over ragged lengths:
@@ -2417,10 +2849,24 @@ def main() -> int:
                  train_records_plain_ms=rec[2], train_records_library_ms=rec[3],
                  train_records_library_device_ms=rec[6])
         rows.append(r)
+    # the sorted kernel (fix_random): its uniform-keys case, the train
+    # step's records beside it
+    err, ms, pms, lib_ms, bnd, dev_ms, lib_dev_ms, _ = sorted_res[0]
+    r = row("sorted_scatter_add", "sorted_scatter.cu", "segmented_scatter.py:382", err, ms,
+            pms, bnd, lib_ms)
+    r.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+             max_abs_err=max(x[0] for x in sorted_res),
+             rows_one_ulp_vs_cpu_plain=[x[-1] for x in sorted_res],
+             fix_random_patch_step_launches=fix_per_step)
+    rec = sorted_res[1]
+    r.update(train_records_ms=rec[1], train_records_device_ms=rec[5],
+             train_records_plain_ms=rec[2], train_records_library_ms=rec[3],
+             train_records_library_device_ms=rec[6])
+    rows.append(r)
     # the patch path: launches a step, and each kernel on one patch step's
     # own inputs
     for r in rows:
-        r["patch_step_launches"] = per_step[r["name"]]
+        r["patch_step_launches"] = per_step.get(r["name"], 0)
         if r["name"] == "knn_blend":
             err, ms, pms, bnd, dev_ms = patch_timed["knn_blend"]
             lib_ms = None
@@ -2443,7 +2889,8 @@ def main() -> int:
     for r in rows:
         # phase 10's launches in each rank (rank 0's with the NCCL rank's)
         r["dp_launches_per_rank"] = [d.get(r["name"], 0) for d in dp_launches]
-        r["orbax_launches"] = orbax_launches[r["name"]]
+        r["orbax_launches"] = orbax_launches.get(r["name"], 0)
+        r["completion_launches"] = completion_launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

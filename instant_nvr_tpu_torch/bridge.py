@@ -10,10 +10,13 @@ numpy: nothing here imports jax.
 
 The JAX tables may carry rows beyond their logical size (TPU scatter-kernel
 tile padding, zero by construction); they are dropped after checking that
-they are zero.  Tables the JAX package stores packed as
-(rows / (128 / F), 128) have no counterpart here and are refused; the
-flagship's part grids are scalar and its deformer table is small, so it
-has none.
+they are zero.  A table of F < 128 features (128 % F == 0) that the JAX
+package stores packed, ``flat.reshape(-1, 128)`` of its padded (rows, F)
+array (``instant_nvr_tpu/ops/hashgrid.py:_is_packed``: from
+``kernel_min_rows`` rows up, under radam, sgd, weight decay or
+``scalar_tables: False``), is read back as ``reshape(-1, F)``; any other
+2-D shape is refused naming the leaf.  Optimizer moments take the same
+path (``train/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -32,10 +35,14 @@ def _table(arr, spec: HashGridSpec, rows: int, name: str) -> np.ndarray:
         if arr.ndim != 1:
             raise ValueError(f"{name}: scalar grid expects a 1-D table, "
                              f"got {arr.shape}")
-    elif arr.ndim != 2 or arr.shape[1] != spec.n_features:
-        raise ValueError(
-            f"{name}: table of shape {arr.shape} is stored packed (or is not "
-            f"(rows, {spec.n_features})); packed tables are not supported")
+    else:
+        F = spec.n_features
+        if arr.ndim == 2 and arr.shape[1] == 128 and F < 128 and 128 % F == 0:
+            arr = arr.reshape(-1, F)                # stored packed
+        if arr.ndim != 2 or arr.shape[1] != F:
+            raise ValueError(
+                f"{name}: table of shape {arr.shape} is neither (rows, {F}) "
+                f"nor packed (rows * {F} / 128, 128)")
     if arr.shape[0] < rows:
         raise ValueError(f"{name}: {arr.shape[0]} rows, spec needs {rows}")
     if np.any(arr[rows:] != 0):

@@ -33,6 +33,7 @@ KERNELS: Dict[str, Tuple[str, ...]] = {
     "knn_topk": ("--fmad=false",),
     "segmented_scatter": (),
     "onehot_scatter": (),
+    "sorted_scatter": (),
 }
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, Path]] = {}

@@ -4,8 +4,9 @@
 An elliptical camera orbit fitted through the dataset's cameras, one
 full-image render per orbit camera through :class:`AutoBudgetRenderer`,
 PNG frames, and an ffmpeg merge into an mp4 where ffmpeg is on the path.
-Without ffmpeg the frames stay and no video is written: the JAX version's
-fallback, cv2's video writer, has no counterpart here.
+Without ffmpeg the frames go into an MPEG-4 Part 2 (mp4v) file written by
+the port itself (``eval/video.py``), as the JAX version falls back to
+cv2's mp4v writer.
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ from typing import Dict, List
 
 import numpy as np
 
-from ..datasets.image_ops import write_png
+from ..datasets.image_ops import read_png, write_png
 from ..datasets.tpose_dataset import TPoseDataset
 from ..ops.ray import get_near_far_np, get_rays_np
 from ..renderer.inb_renderer import make_render_spec
 from .runner import META_KEYS, AutoBudgetRenderer, budgets_path, eval_chunk
+from .video import write_mp4
 
 # frames per second of the bullet-time video
 FPS = 24
@@ -133,20 +135,27 @@ def render_novel_views(cfg, mspec, model) -> List[str]:
     return frames
 
 
-def merge_into_video(frame_dir: str, out_path: str) -> bool:
-    """ffmpeg merge of ``frame_dir/frame_%04d.png`` into ``out_path`` at
-    ``FPS``.
-    Returns True when the video was written; without ffmpeg (or when it
-    fails) prints why, leaves the frames and returns False."""
+def merge_into_video(frame_dir: str, out_path: str, fps: int = FPS) -> bool:
+    """Merge ``frame_dir/frame_%04d.png`` into ``out_path`` at ``fps``:
+    ffmpeg (libx264) where it runs, else the port's mp4v writer
+    (``eval/video.py``), as the JAX version falls back to cv2's.  Returns
+    True when a video was written, False when there are no frames."""
     try:
         subprocess.run(
-            ["ffmpeg", "-y", "-framerate", str(FPS), "-i",
+            ["ffmpeg", "-y", "-framerate", str(fps), "-i",
              os.path.join(frame_dir, "frame_%04d.png"),
              "-c:v", "libx264", "-pix_fmt", "yuv420p", out_path],
             check=True, capture_output=True)
+        print(f"wrote {out_path}")
+        return True
     except (FileNotFoundError, subprocess.CalledProcessError) as e:
-        print(f"ffmpeg unavailable/failed ({e}); no video, frames left in "
-              f"{frame_dir}")
+        print(f"ffmpeg unavailable/failed ({e}); writing mp4v")
+    names = sorted(f for f in os.listdir(frame_dir)
+                   if f.startswith("frame_") and f.endswith(".png"))
+    if not names:
+        print(f"no frames in {frame_dir}; skipping video")
         return False
-    print(f"wrote {out_path}")
+    frames = (read_png(os.path.join(frame_dir, f))[..., :3] for f in names)
+    write_mp4(out_path, frames, fps)
+    print(f"wrote {out_path} (mp4v)")
     return True

@@ -27,10 +27,11 @@ class DeformerSpec(NamedTuple):
 
 
 def make_deformer_spec(embed_kwargs: dict, primes, scalar_ok: bool = True,
-                       exact_grads: bool = False) -> DeformerSpec:
+                       exact_grads: bool = False,
+                       sorted_grads: bool = False) -> DeformerSpec:
     return DeformerSpec(embed=make_hashgrid_spec(
         primes=primes, scalar_tables=scalar_ok, exact_grads=exact_grads,
-        **embed_kwargs))
+        sorted_grads=sorted_grads, **embed_kwargs))
 
 
 class Deformer(nn.Module):

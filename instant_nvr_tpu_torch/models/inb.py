@@ -1,7 +1,7 @@
 """The flagship model: part-wise hash-grid dynamic-human NeRF, forward
-(port of ``instant_nvr_tpu/models/inb.py``, fused path).
+(port of ``instant_nvr_tpu/models/inb.py``).
 
-  world pts -> pose space -> SMPL-distance cull (fixed-budget top-k)
+  world pts -> pose space -> SMPL-distance cull (fixed budget)
   -> per-part KNN blend weights (the CUDA kernel, ops/knn.py)
   -> inverse LBS to bigpose -> UV-deformer residual -> fused 5-part hash
   encoding -> stacked occupancy / colour MLPs -> max-occupancy aggregation
@@ -11,11 +11,16 @@ Every shape is fixed per chunk; validity masks carry the sparsity, so the
 forward never waits on the device for a count.  The part tables are cast
 to the gather dtype in the forward; the JAX package's bf16 table shadow
 only fuses that cast into its Adam update and gives the same numbers.
-``forward_parts`` (the JAX package's own per-part oracle) and
-``select_mode: partition`` are not ported.  Parameters live in :class:`InbModel` under the JAX tree's names.
+``select_mode`` picks how a budget is kept (``ops/select.py``): ``topk``
+(nearest first) or ``partition`` (a fixed random order) for the cull,
+the per-part selection and the pair selection.  :func:`forward_parts` is
+the JAX package's own oracle, the pipeline unrolled part by part; no
+entry point runs it.  Parameters live in :class:`InbModel` under the JAX
+tree's names.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
@@ -25,13 +30,19 @@ from torch import nn
 
 from ..ops import lbs
 from ..ops.grid_sample import pts_sample_volume
-from ..ops.hashgrid import (HashGridSpec, HashTables, make_hashgrid_spec,
-                            multi_hashgrid_encode)
+from ..ops.hashgrid import (HashGridSpec, HashTables, hashgrid_encode,
+                            make_hashgrid_spec, multi_hashgrid_encode)
 from ..ops.knn import knn_blend
-from ..ops.select import scatter_back, topk_select
+from ..ops.select import (_fixed_perm, compact, partition_select, scatter_back,
+                          topk_select)
+from ..parallel import mesh as pmesh
 from .deformer import Deformer, DeformerSpec, deformer_apply, make_deformer_spec
 from .embedders import freq_encode, freq_out_dim
-from .nn import kaiming_normal_, make_mlp, mlp_apply_stacked
+from .nn import kaiming_normal_, make_mlp, mlp_apply, mlp_apply_stacked
+
+SELECT_MODES = ("topk", "partition")
+_PARTITION_ON_RANKS = ("select_mode: partition orders the whole sample axis, which no "
+                       "rank of --distributed holds; use topk")
 
 
 def _round_budget(n: int, mult: int = 128) -> int:
@@ -47,7 +58,9 @@ def budgets(spec: "ModelSpec", n_samples: int) -> Tuple[int, Tuple[int, ...]]:
 
 
 class ModelSpec(NamedTuple):
-    """Static model description (the JAX ModelSpec minus TPU routing)."""
+    """Static model description (the JAX ModelSpec; its ``knn_backend`` is
+    only checked, by :func:`_check_knn_backend`: the port has one KNN route
+    per device)."""
     partnames: Tuple[str, ...]
     part_embeds: Tuple[HashGridSpec, ...]
     rgb_archs: Tuple[Tuple[int, int], ...]   # per part (d_hidden, n_layers)
@@ -68,6 +81,7 @@ class ModelSpec(NamedTuple):
     tpose_viewdir: bool
     compute_dtype: str          # 'bfloat16' | 'float32' for MLP matmuls
     grid_compute_dtype: str     # part-table gather dtype (params stay f32)
+    select_mode: str = "topk"   # 'topk' | 'partition' (ops/select.py)
 
     @property
     def num_parts(self) -> int:
@@ -89,8 +103,41 @@ class ModelSpec(NamedTuple):
         return [(arch, tuple(ids)) for arch, ids in groups.items()]
 
 
+def _check_knn_backend(cfg) -> None:
+    """``auto`` and ``pallas`` both mean knn_blend's kernel on the card;
+    any other value raises, naming the key."""
+    backend = cfg.get("knn_backend", "auto")
+    if backend in ("auto", "pallas"):
+        return
+    if backend == "xla":
+        raise ValueError(
+            "knn_backend: xla asks for the KNN route without a kernel; the port "
+            "has one KNN route per device (knn_blend's kernel on the card, its "
+            "plain version on the CPU): set auto or pallas")
+    raise ValueError(f"knn_backend: {backend!r} is none of auto, pallas")
+
+
+def _select_mode(cfg) -> str:
+    mode = cfg.get("select_mode", "topk")
+    if mode not in SELECT_MODES:
+        raise ValueError(f"select_mode: {mode!r} is none of {', '.join(SELECT_MODES)}")
+    return mode
+
+
+def check_distributed(cfg) -> None:
+    """Raise for a config ``--distributed`` cannot run: a rank holds only
+    its shard of the sample axis, and ``select_mode: partition`` orders the
+    whole axis by one fixed permutation."""
+    if _select_mode(cfg) == "partition":
+        raise ValueError(_PARTITION_ON_RANKS)
+
+
 def build_model_spec(cfg) -> ModelSpec:
-    """Assemble the spec from an inb YAML config (as the JAX version does)."""
+    """Assemble the spec from an inb YAML config (as the JAX version does).
+    ``fix_random`` routes every table gradient that the atomic kernels
+    would take through the sorted-segment kernel (``ops/hashgrid.py:
+    grad_route``)."""
+    _check_knn_backend(cfg)
     primes = tuple(cfg.ps)
     partnames = tuple(lbs.PARTNAMES)
     # scalar grids are exact only for Adam with zero weight decay
@@ -99,6 +146,7 @@ def build_model_spec(cfg) -> ModelSpec:
                  and cfg.get("scalar_tables", True))
     # full-precision runs keep exact f32 table gradients (ops/hashgrid.py)
     exact = cfg.get("grid_compute_dtype", "bfloat16") == "float32"
+    sorted_grads = bool(cfg.get("fix_random", False))
     default_color = (cfg.network.color.d_hidden, cfg.network.color.n_layers)
     part_embeds, rgb_archs = [], []
     for p in partnames:
@@ -106,6 +154,7 @@ def build_model_spec(cfg) -> ModelSpec:
         part_embeds.append(make_hashgrid_spec(primes=primes,
                                               scalar_tables=scalar_ok,
                                               exact_grads=exact,
+                                              sorted_grads=sorted_grads,
                                               **node.embedder.kwargs.to_dict()))
         if "color_network" in node and "kwargs" in node.color_network:
             kw = node.color_network.kwargs
@@ -113,7 +162,8 @@ def build_model_spec(cfg) -> ModelSpec:
         else:
             rgb_archs.append(default_color)
     deformer = make_deformer_spec(cfg.tpose_deformer.embedder.kwargs.to_dict(),
-                                  primes, scalar_ok=scalar_ok, exact_grads=exact)
+                                  primes, scalar_ok=scalar_ok, exact_grads=exact,
+                                  sorted_grads=sorted_grads)
     return ModelSpec(
         partnames=partnames,
         part_embeds=tuple(part_embeds),
@@ -136,6 +186,7 @@ def build_model_spec(cfg) -> ModelSpec:
         tpose_viewdir=cfg.tpose_viewdir,
         compute_dtype=cfg.mlp_dtype,
         grid_compute_dtype=cfg.get("grid_compute_dtype", "bfloat16"),
+        select_mode=_select_mode(cfg),
     )
 
 
@@ -242,7 +293,11 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     pnorm = pts_sample_volume(pose_pts, batch["pbw"][..., -1:],
                               batch["pbounds"], sizes=batch.get("pbw_sizes"))[:, 0]
     K, Kps = budgets(spec, N)
-    cidx, cvalid = topk_select(pnorm, K, spec.smpl_thresh)
+    partition = spec.select_mode == "partition"
+    if partition and pmesh.world_size() > 1:
+        raise ValueError(_PARTITION_ON_RANKS)
+    select = partition_select if partition else topk_select
+    cidx, cvalid = select(pnorm, K, spec.smpl_thresh)
     cpts = pose_pts[cidx].contiguous()                     # (K, 3)
     cdirs = pose_dirs[cidx]
 
@@ -254,16 +309,25 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     part_dist = knn[..., lbs.NUM_BONES]                    # (K, P)
     pflag = (part_dist < spec.smpl_thresh) & cvalid[:, None]
 
-    # 4. batched per-part selection into the (P, Kmax) padded layout; part
-    #    p's budget Kp is the leading slice of one Kmax top-k
+    # 4. batched per-part selection into the (P, Kmax) padded layout:
+    #    'topk': part p's budget Kp is the leading slice of one Kmax top-k;
+    #    'partition': each part's row of pflag compacted in the fixed order
+    #    of _fixed_perm(K), its count clipped to Kp
     Kmax = max(Kps)
     offs = np.cumsum((0,) + Kps)
     kp_arr = torch.tensor(Kps, device=dev)
     score = torch.where(pflag, part_dist,
                         torch.full_like(part_dist, float("inf"))).T   # (P, K)
-    best, idx_b = torch.topk(score, Kmax, dim=1, largest=False)       # (P, Kmax)
-    valid_b = best < spec.smpl_thresh
-    valid_pad = valid_b & (torch.arange(Kmax, device=dev)[None, :] < kp_arr[:, None])
+    if partition:
+        idx_b, count = compact(pflag.T, _fixed_perm(K, dev), kp_arr, Kmax)
+        valid_pad = torch.arange(Kmax, device=dev)[None, :] < count[:, None]
+        valid_b = valid_pad
+        best = torch.where(valid_b, torch.gather(score, 1, idx_b),
+                           torch.full_like(idx_b, float("inf"), dtype=score.dtype))
+    else:
+        best, idx_b = torch.topk(score, Kmax, dim=1, largest=False)   # (P, Kmax)
+        valid_b = best < spec.smpl_thresh
+        valid_pad = valid_b & (torch.arange(Kmax, device=dev)[None, :] < kp_arr[:, None])
 
     all_idx = torch.cat([idx_b[p, :Kps[p]] for p in range(P)])        # (M,)
     all_valid = torch.cat([valid_b[p, :Kps[p]] for p in range(P)])
@@ -389,4 +453,135 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
             "budget_counts": torch.stack([true_surv, sel_surv, flag_total,
                                           sel_total]),
         })
+    return ret
+
+
+def _expert(layers, i: int) -> List[SimpleNamespace]:
+    """Expert ``i``'s layers of a stacked MLP, for :func:`mlp_apply`."""
+    return [SimpleNamespace(w=layer.w[i], b=layer.b[i]) for layer in layers]
+
+
+def forward_parts(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
+                  viewdir: torch.Tensor, batch: Dict[str, torch.Tensor],
+                  train: bool = False) -> Dict[str, torch.Tensor]:
+    """The pipeline unrolled part by part (port of the JAX package's
+    ``forward_parts``, its oracle for :func:`forward`): one top-k per part,
+    inverse LBS, the encoding and both heads per part, one deformer call
+    over every part's points.  The same selection and the same math as
+    :func:`forward` under ``select_mode: topk``; it returns the same keys
+    (without the per-slot part and distance, and the overflow counts, which
+    the ranks' step reads).  No entry point runs it."""
+    N = wpts.shape[0]
+    P = spec.num_parts
+    cd = spec.cdtype
+    tables = _cast_tables(spec, model)
+
+    # 1.-3. pose space, the cull, the KNN blend weights (as forward)
+    pose_pts = lbs.world_points_to_pose_points(wpts, batch["R"], batch["Th"])
+    pose_dirs = lbs.world_dirs_to_pose_dirs(viewdir, batch["R"])
+    pnorm = pts_sample_volume(pose_pts, batch["pbw"][..., -1:],
+                              batch["pbounds"], sizes=batch.get("pbw_sizes"))[:, 0]
+    K, Kps = budgets(spec, N)
+    cidx, cvalid = topk_select(pnorm, K, spec.smpl_thresh)
+    cpts = pose_pts[cidx].contiguous()
+    cdirs = pose_dirs[cidx]
+    knn = knn_blend(cpts, batch["part_pts"], batch["part_pbw"],
+                    batch["lengths2"], K=spec.knn_k, radius=spec.knn_radius,
+                    chunk=spec.knn_chunk)
+    pred_pbw = knn[..., :lbs.NUM_BONES]
+    part_dist = knn[..., lbs.NUM_BONES]
+    pflag = (part_dist < spec.smpl_thresh) & cvalid[:, None]
+
+    tmid = torch.mean(batch["tbounds"], dim=0)
+    A1 = batch["A"][None]
+    bigA1 = batch["big_A"][None]
+    raws = torch.zeros((K, P, 4), dtype=torch.float32, device=wpts.device)
+
+    # pass 1: each part's selection and inverse LBS
+    sel = []
+    for p in range(P):
+        score = torch.where(pflag[:, p], part_dist[:, p],
+                            torch.full_like(part_dist[:, p], float("inf")))
+        idx_p, valid_p = topk_select(score, Kps[p], spec.smpl_thresh)
+        bw = pred_pbw[idx_p, p]
+        sel_bw = torch.where(valid_p[:, None], bw,
+                             torch.full_like(bw, 1.0 / lbs.NUM_BONES))
+        A_bw, R_inv = lbs.inverse_blend_params(sel_bw[None], A1)
+        big_A_bw = lbs.blend_transforms(sel_bw[None], bigA1)
+        init_tpose = lbs.pose_points_to_tpose_points(cpts[idx_p][None], A_bw, R_inv)
+        bigpose = lbs.tpose_points_to_pose_points(init_tpose, big_A_bw)[0]
+        if spec.tpose_viewdir:
+            tdirs = lbs.pose_dirs_to_tpose_dirs(cdirs[idx_p][None], R_inv)
+            dirs_p = lbs.tpose_dirs_to_pose_dirs(tdirs, big_A_bw)[0]
+        else:
+            dirs_p = cdirs[idx_p]
+        bigpose = torch.where(valid_p[:, None], bigpose, tmid.expand_as(bigpose))
+        sel.append((idx_p, valid_p, bigpose, dirs_p))
+
+    # one deformer call over every part's points
+    all_big = torch.cat([s[2] for s in sel])
+    all_valid = torch.cat([s[1] for s in sel])
+    all_resd = deformer_apply(spec.deformer, model.deformer, all_big,
+                              batch["tuv"], batch["tbounds"], batch["frame_dim"],
+                              flag=all_valid, tuv_sizes=batch.get("tuv_sizes"),
+                              compute_dtype=cd)
+    offs = np.cumsum((0,) + Kps)
+
+    # pass 2: each part's encoding and heads
+    slots = {p: (arch, ids.index(p)) for arch, ids in spec.rgb_groups() for p in ids}
+    toccs = []
+    for p, name in enumerate(spec.partnames):
+        idx_p, valid_p, bigpose, dirs_p = sel[p]
+        tpose_p = bigpose + all_resd[offs[p]:offs[p + 1]]
+        emb = hashgrid_encode(spec.part_embeds[p], tables[p], tpose_p,
+                              batch["part_bounds"][p])
+        hidden = mlp_apply(_expert(model.occ, p), emb, cd)
+        occ_v = 1.0 - torch.exp(-F.softplus(hidden[..., :1]))
+        latent = model.latent[p, batch["latent_index"], :]
+        rgb_in = torch.cat([emb, freq_encode(dirs_p, spec.viewdir_res),
+                            hidden[..., 1:],
+                            latent[None, :].expand(emb.shape[0], spec.latent_dim)], dim=-1)
+        (dh_g, nl_g), slot = slots[p]
+        rgb_v = torch.sigmoid(mlp_apply(_expert(model.rgb[f"h{dh_g}_l{nl_g}"], slot),
+                                        rgb_in, cd))
+        raw_v = torch.cat([rgb_v, occ_v], dim=-1).float()
+        # invalid slots to a spare row K, cut off after
+        rows = torch.where(valid_p, idx_p, torch.full_like(idx_p, K))
+        col = torch.zeros((K + 1, 4), dtype=torch.float32, device=wpts.device)
+        col[rows] = raw_v
+        raws[:, p] = col[:K]
+        toccs.append(occ_v)
+    occs = raws[..., 3:]
+
+    if spec.aggr == "mean":
+        raw = torch.mean(raws, dim=1)
+        occ = torch.mean(occs, dim=1)
+    elif spec.aggr == "dist":
+        inv = 1.0 / (part_dist + 1e-5)
+        inv = inv / torch.clamp(torch.linalg.norm(inv, dim=-1, keepdim=True),
+                                min=1e-12)
+        raw = torch.sum(raws * inv[..., None], dim=1)
+        occ = torch.sum(occs * inv[..., None], dim=1)
+    else:
+        win = torch.argmax(occs[..., 0], dim=1)
+        raw = torch.gather(raws, 1, win[:, None, None].expand(K, 1, 4))[:, 0]
+        occ = torch.amax(occs, dim=1)
+
+    raw_full = scatter_back(raw.new_zeros((N, 4)), cidx, raw, cvalid)
+    occ_full = scatter_back(occ.new_zeros((N, 1)), cidx, occ, cvalid)
+    true_surv = torch.sum(pnorm < spec.smpl_thresh)
+    sel_surv = torch.sum(cvalid)
+    flag_total = torch.sum(pflag)
+    sel_total = torch.sum(all_valid)
+    ret = {
+        "raw": raw_full, "occ": occ_full,
+        "cull_overflow": (true_surv - sel_surv) / torch.clamp(true_surv, min=1),
+        "part_overflow": (flag_total - sel_total) / torch.clamp(flag_total, min=1),
+        "cull_need": true_surv / N,
+        "part_need": torch.sum(pflag, dim=0) / K,
+    }
+    if train:
+        ret.update({"resd": all_resd, "tpts": all_big,
+                    "tocc": torch.cat(toccs), "tflag": all_valid,
+                    "cull_valid": cvalid})
     return ret

@@ -33,7 +33,12 @@ scatter-add of the gather's cotangent, routed by :func:`grad_route`:
   a block's shared memory (otherwise ``segmented_scatter_add``);
 * any other f32 table (``grid_compute_dtype: float32`` sets
   ``exact_grads``) gets the exact f32 ``index_add_``, as the JAX package
-  gives it XLA's f32 scatter.
+  gives it XLA's f32 scatter;
+* under ``fix_random`` (the spec's ``sorted_grads``) every table of the
+  first kind takes ``sorted_scatter_add`` instead: the records sorted by
+  key, each row's sum in a fixed order, bit for bit the same from run to
+  run.  An exact table keeps ``index_add_``, which is deterministic under
+  ``torch.use_deterministic_algorithms``.
 
 The index streams are (n_lev, 8, N) arrays, level-major when flattened,
 which the kernels require.
@@ -75,6 +80,8 @@ class HashGridSpec(NamedTuple):
     scalar: bool = False          # one value per row; forward uses F * q
     # f32 tables keep exact f32 gradients (no bf16 rounding in the backward)
     exact_grads: bool = False
+    # every gradient through the deterministic sorted-segment kernel
+    sorted_grads: bool = False
 
     @property
     def out_dim(self) -> int:
@@ -118,6 +125,7 @@ def make_hashgrid_spec(n_levels: int = 16, n_features_per_level: int = 16,
                        primes=(1, 19349663, 83492791),
                        scalar_tables: bool = True,
                        exact_grads: bool = False,
+                       sorted_grads: bool = False,
                        **_unused) -> HashGridSpec:
     table_size = int(nextprime(2 ** log2_hashmap_size))
     entries_num = tuple(int(base_resolution * b ** i) for i in range(n_levels))
@@ -140,7 +148,7 @@ def make_hashgrid_spec(n_levels: int = 16, n_features_per_level: int = 16,
         sum_over_features=sum_over_features, include_input=include_input,
         primes=tuple(int(p) for p in primes),
         scalar=bool(scalar_tables and sum and sum_over_features),
-        exact_grads=bool(exact_grads))
+        exact_grads=bool(exact_grads), sorted_grads=bool(sorted_grads))
 
 
 def hashgrid_init(spec: HashGridSpec, generator: torch.Generator,
@@ -228,29 +236,35 @@ def _hash_index(idx3, primes, table_size: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def grad_route(n_rows: int, F: int, level_offsets: Sequence[int],
-               table_dtype: torch.dtype, allow_rounded: bool) -> str:
+               table_dtype: torch.dtype, allow_rounded: bool,
+               sorted_grads: bool = False) -> str:
     """Where the gradient of a gather from an (n_rows, F) table goes:
-    'segmented' | 'onehot' (the kernels of ops/scatter.py, bf16 payload) or
-    'exact' (f32 index_add_).  Mirrors the JAX package's
-    ``_table_gather_bwd`` / ``_scalar_gather_bwd`` (see module doc)."""
+    'segmented' | 'onehot' (the kernels of ops/scatter.py, bf16 payload),
+    'exact' (f32 index_add_) or, under ``sorted_grads``, 'sorted' (the
+    deterministic kernel) in place of the first two.  Mirrors the JAX
+    package's ``_table_gather_bwd`` / ``_scalar_gather_bwd`` (see module
+    doc)."""
     if table_dtype != torch.bfloat16 and not allow_rounded:
         return "exact"
+    if sorted_grads:
+        return "sorted"
     if n_rows < KERNEL_MIN_ROWS and scatter.onehot_fits(level_offsets, F):
         return "onehot"
     return "segmented"
 
 
 _SCATTER = {"segmented": scatter.segmented_scatter_add,
-            "onehot": scatter.onehot_scatter_add}
+            "onehot": scatter.onehot_scatter_add,
+            "sorted": scatter.sorted_scatter_add}
 
 
 def _table_grad(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
                 level_offsets: Tuple[int, ...], table_dtype: torch.dtype,
-                allow_rounded: bool) -> torch.Tensor:
+                allow_rounded: bool, sorted_grads: bool) -> torch.Tensor:
     """idx (n_lev, ...) level-major rows, g (R, F) cotangent -> (n_rows, F)
     gradient in the table's dtype."""
     route = grad_route(n_rows, g.shape[1], level_offsets, table_dtype,
-                       allow_rounded)
+                       allow_rounded, sorted_grads)
     if route == "exact":
         return scatter.exact_scatter_add(idx, g.to(table_dtype), n_rows)
     # the payload is rounded to bf16 once (a bf16 cotangent is unchanged);
@@ -263,29 +277,33 @@ def _table_grad(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
 
 class _TableGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx, level_offsets, allow_rounded):
+    def forward(ctx, table, idx, level_offsets, allow_rounded, sorted_grads):
         ctx.save_for_backward(idx)
-        ctx.meta = (table.shape, table.dtype, level_offsets, allow_rounded)
+        ctx.meta = (table.shape, table.dtype, level_offsets, allow_rounded,
+                    sorted_grads)
         return table[idx]
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None, None, None
+            return None, None, None, None, None
         (idx,) = ctx.saved_tensors
-        shape, dtype, level_offsets, allow_rounded = ctx.meta
+        shape, dtype, level_offsets, allow_rounded, sorted_grads = ctx.meta
         grad = _table_grad(idx, g.reshape(idx.numel(), -1), shape[0],
-                           level_offsets, dtype, allow_rounded)
-        return grad.reshape(shape), None, None, None
+                           level_offsets, dtype, allow_rounded, sorted_grads)
+        return grad.reshape(shape), None, None, None, None
 
 
 def table_gather(table: torch.Tensor, idx: torch.Tensor,
                  level_offsets: Tuple[int, ...],
-                 allow_rounded: bool = False) -> torch.Tensor:
+                 allow_rounded: bool = False,
+                 sorted_grads: bool = False) -> torch.Tensor:
     """``table[idx]`` for an (n_rows,) or (n_rows, F) table; idx (n_lev, ...)
     with level l's rows inside ``level_offsets[l]:level_offsets[l + 1]``.
-    ``allow_rounded`` lets an f32 table's gradient take the bf16 kernels."""
-    return _TableGather.apply(table, idx, level_offsets, allow_rounded)
+    ``allow_rounded`` lets an f32 table's gradient take the bf16 kernels;
+    ``sorted_grads`` sends it to the deterministic one."""
+    return _TableGather.apply(table, idx, level_offsets, allow_rounded,
+                              sorted_grads)
 
 
 # the JAX package's name for the gather from a 1-D (scalar) table
@@ -311,12 +329,13 @@ def _gather(spec: HashGridSpec, table: torch.Tensor, ind: torch.Tensor,
     for scalar grids (the value q), else the F features."""
     plan = gather_plan(spec, table.shape[0])
     rounded = not spec.exact_grads
+    det = spec.sorted_grads
     if plan == "scalar":
-        return scalar_table_gather(table, ind, level_offsets)[..., None]
+        return scalar_table_gather(table, ind, level_offsets, False, det)[..., None]
     if plan == "rows":
-        return table_gather(table, ind, level_offsets, rounded)
+        return table_gather(table, ind, level_offsets, rounded, det)
     return torch.stack([scalar_table_gather(table[:, f], ind, level_offsets,
-                                            rounded)
+                                            rounded, det)
                         for f in range(spec.n_features)], dim=-1)
 
 
@@ -329,7 +348,8 @@ def encode_grad_routes(spec: HashGridSpec, table_dtype: torch.dtype) -> List[str
         rounded = plan != "scalar" and not spec.exact_grads
         F = spec.n_features if plan == "rows" else 1
         n_calls = spec.n_features if plan == "columns" else 1
-        routes += [grad_route(rows, F, level_offsets, table_dtype, rounded)] * n_calls
+        routes += [grad_route(rows, F, level_offsets, table_dtype, rounded,
+                              spec.sorted_grads)] * n_calls
     return routes
 
 

@@ -25,10 +25,18 @@ fall inside window l.  F is a power of two <= 128.
   (:func:`onehot_fits`).  A record whose key lies inside the table but
   outside its level's window is outside the contract: the kernel drops it,
   as the TPU kernel does, where the plain version adds it.
+* ``sorted_scatter_add`` (``fix_random``: every table) is the deterministic
+  form, as the TPU kernel is: the records are sorted by key (a stable
+  ``torch.sort``, then a gather of the payload, as JAX's ``lax.sort`` runs
+  outside its kernel), and ``csrc/sorted_scatter.cu`` sums each key's run
+  in a fixed order, with no atomics and no workspace, so two runs give the
+  same bits.  An exact float32 table keeps ``exact_scatter_add`` under
+  ``fix_random``: ``index_add_`` is deterministic under
+  ``torch.use_deterministic_algorithms``.
 
 Each wrapper call is one call into its library, which enqueues all of its
-work: no zero fill of a workspace and no cast pass over the table.  Both
-kernels share one persistent float32 workspace per (device, stream)
+work: no zero fill of a workspace and no cast pass over the table.  The
+two atomic kernels share one persistent float32 workspace per (device, stream)
 (:func:`workspace`), all zero between calls: the segmented kernel's
 accumulator and, with several clusters per level, the one-hot kernel's
 (its window sums, then one ticket word per level behind the table).
@@ -38,7 +46,7 @@ flagship's body hash table) and never shrinks.
 On a CPU tensor each wrapper runs its ``*_plain`` version (a float32
 ``index_add_`` into zeros, cast to bf16: the contract of
 ``segmented_scatter_add_ref``); on a CUDA tensor it launches its kernel or
-raises, and adds one to its ``.launches``.  The two results differ only in
+raises, and adds one to its ``.launches``.  The results differ only in
 the order of the float32 sums.  ``exact_scatter_add`` is the float32
 gradient of an f32 table that may not be rounded (``grid_compute_dtype:
 float32``); it counts its calls in ``.calls``.
@@ -83,6 +91,20 @@ def onehot_scatter_add_plain(keys: torch.Tensor, payload: torch.Tensor,
                              level_offsets: Sequence[int] = ()) -> torch.Tensor:
     """Plain PyTorch version of :func:`onehot_scatter_add`."""
     return _scatter_plain(keys, payload, n_rows)
+
+
+def sorted_scatter_add_plain(keys: torch.Tensor, payload: torch.Tensor,
+                             n_rows: int,
+                             level_offsets: Sequence[int] = ()) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sorted_scatter_add`: the stable sort,
+    then each row's records added in order in float32 (``index_add_`` on
+    the CPU adds in index order), keys outside the table dropped; bf16."""
+    skeys, order = torch.sort(keys, stable=True)
+    keep = (skeys >= 0) & (skeys < n_rows)
+    acc = torch.zeros((n_rows, payload.shape[1]), dtype=torch.float32,
+                      device=payload.device)
+    acc.index_add_(0, skeys[keep].long(), payload[order[keep]].float())
+    return acc.to(payload.dtype)
 
 
 def exact_scatter_add(keys: torch.Tensor, g: torch.Tensor,
@@ -224,6 +246,46 @@ def segmented_scatter_add(keys: torch.Tensor, payload: torch.Tensor,
 
 
 segmented_scatter_add.launches = 0
+
+
+def load_sorted_kernel():
+    """Build (if needed) and load ``csrc/sorted_scatter.cu`` -> its launch
+    function.  Raises if the build fails."""
+    fn = _launch.get("sorted")
+    if fn is None:
+        from ..cuda_build import load_library
+        fn = load_library("sorted_scatter").sorted_scatter_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _launch["sorted"] = fn
+    return fn
+
+
+def sorted_scatter_add(keys: torch.Tensor, payload: torch.Tensor,
+                       n_rows: int,
+                       level_offsets: Sequence[int] = ()) -> torch.Tensor:
+    """(n_rows, F) bf16 table gradient, summed in float32 in an order fixed
+    by the keys alone; see module doc."""
+    if keys.device.type == "cpu":
+        return sorted_scatter_add_plain(keys, payload, n_rows, level_offsets)
+    if keys.device.type != "cuda":
+        raise ValueError(f"sorted_scatter_add runs on cpu or cuda, not {keys.device}")
+    _check_args("sorted_scatter_add", keys, payload, n_rows)
+    R, F = payload.shape
+    skeys, order = torch.sort(keys, stable=True)
+    spay = payload.index_select(0, order)
+    out = torch.empty((n_rows, F), dtype=torch.bfloat16, device=keys.device)
+    err = load_sorted_kernel()(skeys.data_ptr(), spay.data_ptr(), out.data_ptr(), R,
+                               F.bit_length() - 1, n_rows, keys.device.index,
+                               _stream(keys))
+    if err != 0:
+        raise RuntimeError(f"sorted_scatter_add launch failed: cudaError {err}")
+    sorted_scatter_add.launches += 1
+    return out
+
+
+sorted_scatter_add.launches = 0
 
 
 def onehot_plan(level_offsets: Sequence[int], R: int, F: int,

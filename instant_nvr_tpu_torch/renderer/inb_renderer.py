@@ -6,7 +6,8 @@ compositing, plus the budget telemetry the eval runner sizes its budgets
 from, and at train time the regularizer tensors:
   - pair regularization: selected points whose occupancy is near 0.5
     (|tocc - 0.5| < pair_thresh) have their residual compared with the
-    residual at a jittered neighbour, within a fixed budget of slots;
+    residual at a jittered neighbour, within a fixed budget of slots
+    (kept by the model's ``select_mode``, as its other budgets);
   - the distortion regularizer per ray.
 
 ``jax.random`` keys become a ``torch.Generator`` (``generator=``), or the
@@ -24,6 +25,7 @@ from ..models import inb
 from ..ops.math import safe_norm
 from ..ops.ray import stratified_z_vals, z_to_points
 from ..ops.rendering import distortion_loss, volume_rendering
+from ..ops.select import partition_select
 from ..parallel import mesh as pmesh
 
 TELEMETRY_KEYS = ("cull_overflow", "part_overflow", "cull_need", "part_need")
@@ -97,16 +99,20 @@ def render_rays(mspec: inb.ModelSpec, rspec: RenderSpec, model: inb.InbModel,
         score = torch.where(net["tflag"], torch.abs(net["tocc"][:, 0] - 0.5),
                             torch.full_like(net["tocc"][:, 0], float("inf")))
         budget = pair_budget(mspec, rspec, R * S)
-        order = pair_order(score, net["tpart"], net["tdist"])
-        idx = torch.topk(order, budget, largest=False).indices
-        valid = score[idx] < rspec.pair_thresh
+        partition = mspec.select_mode == "partition"
+        if partition:   # one process (inb.check_distributed)
+            idx, valid = partition_select(score, budget, rspec.pair_thresh)
+        else:
+            order = pair_order(score, net["tpart"], net["tdist"])
+            idx = torch.topk(order, budget, largest=False).indices
+            valid = score[idx] < rspec.pair_thresh
         tpts = net["tpts"][idx]                             # (B, 3)
         noise = draws.get("pair_noise")
         if noise is None:
             noise = (torch.rand(tpts.shape, generator=generator,
                                 dtype=tpts.dtype, device=tpts.device)
                      - 0.5) * rspec.pair_range
-        else:
+        elif not partition:
             # the one-process rows (see ``train/step.py:draw_render``): a
             # point takes the row of its slot in the top-k over all ranks,
             # and one past that top-k's budget is none of its pairs.  A

@@ -290,7 +290,10 @@ def main(argv=None) -> None:
     if args.type not in SHARDED:
         raise SystemExit(f"--distributed runs --type {' or '.join(SHARDED)}, "
                          f"not {args.type}")
+    from .config import make_cfg
+    from .models import inb
     from .parallel import mesh as pmesh
+    inb.check_distributed(make_cfg(args.cfg_file, args.opts))
     with pmesh.distributed(args.device) as device:
         _main(args, device)
 

@@ -294,6 +294,12 @@ def make_train_step(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
                                      generator, draws, step=state.step,
                                      patch_loss_fn=patch_loss_fn)
         loss.backward()
+        # JAX's gradient of a parameter the loss does not reach is zero,
+        # and optax still steps it (weight decay, decaying moments), where
+        # torch.optim skips a parameter without a gradient
+        for p in state.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if pmesh.world_size() > 1:
             pmesh.all_reduce_grads(state.model.parameters())
             stats = reduce_stats(stats)

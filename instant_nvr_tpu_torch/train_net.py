@@ -11,7 +11,9 @@ starts fresh).  ``--dry_run`` prints the parameter inventory,
 ``--profile`` traces the steps of ``--profile_window`` into
 ``record_dir/profile``; ``--test`` evaluates the test split after training
 (``eval/runner.py:evaluate_dataset``: ``result_dir/metrics.npy`` and the
-comparison PNGs).
+comparison PNGs).  ``--detect_anomaly`` turns on autograd's anomaly mode;
+the config's ``fix_random`` makes the run deterministic
+(:func:`apply_fix_random`).
 
     python -m instant_nvr_tpu_torch.train_net --synthetic --steps 100
     python -m instant_nvr_tpu_torch.train_net --device cpu --tiny --steps 3
@@ -33,6 +35,7 @@ raises.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, NamedTuple
 
@@ -111,6 +114,9 @@ def parse_args(argv=None):
     p.add_argument("--distributed", action="store_true",
                    help="one rank of a torch.distributed job (torchrun's "
                         "environment): NCCL on cuda, Gloo on cpu")
+    p.add_argument("--detect_anomaly", action="store_true",
+                   help="torch.autograd's anomaly mode: a NaN made in backward "
+                        "raises, naming the op (the JAX package's debug_nans)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -118,19 +124,45 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.distributed:
+        inb.check_distributed(load_config(args))    # before any rank starts
         with pmesh.distributed(args.device) as device:
             _main(args, device)
     else:
         _main(args, None)
 
 
-def _main(args, device) -> None:
+def load_config(args):
+    """The run's config: the YAML, ``--tiny``'s widths, then the opts."""
     from .config import default_config, finalize, load_yaml_config
-    from .run import resolve_device
     cfg = load_yaml_config(args.cfg_file, defaults=default_config())
     if args.tiny:   # the command line's opts still win over the tiny widths
         cfg = cfg.merged(TINY)
-    cfg = finalize(cfg.with_overrides(args.opts))
+    return finalize(cfg.with_overrides(args.opts))
+
+
+def apply_fix_random(cfg) -> bool:
+    """The config's ``fix_random`` (the JAX package's ``train_net.py:41-46``):
+    deterministic cuBLAS (its workspace setting, read when its first
+    handle is made), deterministic algorithms and cuDNN; every table
+    gradient the atomic kernels would take already takes the sorted-segment
+    kernel through the specs ``build_model_spec`` builds, and an exact
+    table's ``index_add_`` is deterministic under the flag.  Returns whether
+    it was set."""
+    if not cfg.get("fix_random", False):
+        return False
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return True
+
+
+def _main(args, device) -> None:
+    from .run import resolve_device
+    cfg = load_config(args)
+    apply_fix_random(cfg)
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)
     if args.dry_run:
         model = inb.InbModel(inb.build_model_spec(cfg), device="meta")
         total = 0

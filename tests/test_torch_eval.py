@@ -41,7 +41,7 @@ from instant_nvr_tpu.renderer.inb_renderer import make_render_spec as jmrs
 from instant_nvr_tpu_torch import bridge, run
 from instant_nvr_tpu_torch.config import make_cfg
 from instant_nvr_tpu_torch.datasets.fake_zju import write_fake_dataset
-from instant_nvr_tpu_torch.eval import evaluator, runner, visualizer
+from instant_nvr_tpu_torch.eval import evaluator, runner, video, visualizer
 from instant_nvr_tpu_torch.models import inb
 from instant_nvr_tpu_torch.ops import lbs
 from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
@@ -262,7 +262,7 @@ def test_bounding_rect_matches_cv2(case):
 def test_run_bullet_matches_jax(setup, tmp_path):
     """Three orbit views with the body animating across the 2 frames; the
     frames equal JAX's (uint8); without ffmpeg the port keeps the PNGs and
-    writes no video (JAX falls back to cv2's writer)."""
+    writes the video with its own mp4v writer (JAX falls back to cv2's)."""
     cfg_j = setup.jax_cfg(str(tmp_path / "j"))
     jrun.run_bullet(cfg_j)
     out = setup.run_port("bullet", str(tmp_path / "t"))
@@ -275,19 +275,33 @@ def test_run_bullet_matches_jax(setup, tmp_path):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
     assert "(body frame 1)" in out
     if shutil.which("ffmpeg") is None:
-        assert "no video" in out
-        assert not os.path.exists(os.path.join(res, "novel_view.mp4"))
+        assert "(mp4v)" in out
+        info = video.read_mp4(os.path.join(res, "novel_view.mp4"))
+        assert info["codec"] == "mp4v" and len(info["sample_sizes"]) == 3
 
 
 def test_merge_into_video_keeps_the_frames_without_ffmpeg(tmp_path, monkeypatch, capsys):
+    """Without ffmpeg the frames stay and the port's mp4v writer makes the
+    video (tests/test_torch_video.py holds its pixels); frames below its
+    16 pixels raise; no frames write nothing."""
     from instant_nvr_tpu_torch.datasets.image_ops import write_png
     monkeypatch.setenv("PATH", str(tmp_path / "empty"))
-    for i in range(3):
-        write_png(str(tmp_path / f"frame_{i:04d}.png"), np.full((8, 8, 3), 40 * i, np.uint8))
+    for d, side in (("ok", 16), ("small", 8)):
+        os.makedirs(tmp_path / d)
+        for i in range(3):
+            write_png(str(tmp_path / d / f"frame_{i:04d}.png"),
+                      np.full((side, side + 8, 3), 40 * i, np.uint8))
     out = str(tmp_path / "out.mp4")
-    assert visualizer.merge_into_video(str(tmp_path), out) is False
-    assert not os.path.exists(out) and "frames left in" in capsys.readouterr().out
-    assert len(glob.glob(str(tmp_path / "frame_*.png"))) == 3
+    assert visualizer.merge_into_video(str(tmp_path / "ok"), out) is True
+    assert "(mp4v)" in capsys.readouterr().out
+    info = video.read_mp4(out)
+    assert (info["width"], info["height"], len(info["sample_sizes"])) == (24, 16, 3)
+    assert len(glob.glob(str(tmp_path / "ok" / "frame_*.png"))) == 3
+    with pytest.raises(ValueError, match="16..4096"):
+        visualizer.merge_into_video(str(tmp_path / "small"), str(tmp_path / "small.mp4"))
+    assert len(glob.glob(str(tmp_path / "small" / "frame_*.png"))) == 3
+    os.makedirs(tmp_path / "none")
+    assert visualizer.merge_into_video(str(tmp_path / "none"), out) is False
 
 
 def test_camera_path_matches_jax():

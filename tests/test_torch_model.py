@@ -309,8 +309,13 @@ def test_bridge_refuses_packed_and_nonzero_padding():
     d["hash"][-1] = 1.0
     with pytest.raises(ValueError, match="not zero"):
         bridge.params_from_jax(tree, c.mspec)
+    # a packed table (flat.reshape(-1, 128), hashgrid.py:391-392) reads
+    # back (tests/test_torch_packed.py); a width that is no packing of
+    # F = 4 features, nor F itself, is refused naming the leaf
     d["hash"] = np.zeros((d["hash"].shape[0] * F // 128, 128), np.float32)
-    with pytest.raises(ValueError, match="packed"):
+    bridge.params_from_jax(tree, c.mspec)
+    d["hash"] = np.zeros((d["hash"].shape[0] * 2, 64), np.float32)
+    with pytest.raises(ValueError, match="deformer.embed.hash.*packed"):
         bridge.params_from_jax(tree, c.mspec)
 
 
