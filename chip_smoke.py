@@ -142,10 +142,18 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      (c) ``fix_random``: the sorted kernel (``csrc/sorted_scatter.cu``)
      against its plain version on uniform body-hash keys, the body-hash,
      deformer-hash and arm-dense records of one train step, an F = 16
-     case and phase 3's pileup, hot-row, out-of-range and [1c] cases (times,
-     bound and ``index_add_`` beside it; twice bit-equal; rows bit-equal or
-     one bf16 ulp from the plain version on the CPU, which adds in record
-     order; bit-equal where the sums are exact), whether ``index_add_`` (an
+     case, phase 3's pileup, hot-row, out-of-range and [1c] cases, the
+     patch step's one-hot shape, a table whose rows are no multiple of the
+     tile, buckets of exactly one chunk and of one record more, and more
+     than 2,048 tiles (times, bound and ``index_add_`` beside it; under the
+     deterministic flag the kernel's times, its device split holding only
+     its own kernels, and ``index_add_`` with the flag on and off; twice
+     bit-equal; bit-equal to ``sorted_scatter_add_ordered``, the kernel's
+     order on the CPU; rows bit-equal or one bf16 ulp from the plain
+     version on the CPU, which adds in record order; bit-equal where the
+     sums are exact), the 18 sorted calls of one ``fix_random`` patch step,
+     each held to the same checks on its own inputs and then timed on them
+     (summed), whether ``index_add_`` (an
      exact table's route under ``fix_random``) is deterministic under
      ``use_deterministic_algorithms``, two 10-step
      ``fix_random`` patch runs from one seed whose parameters must be bit-equal
@@ -165,7 +173,9 @@ frame as read in the second evaluation, ``eval_frame_launches``, and its times o
 inputs as ``eval_shape_*``; every row has phase 10's launches in each
 rank, ``dp_launches_per_rank``, and phase 13's, ``completion_launches``,
 which ``launches`` includes; the sorted kernel's row, phase 13's only,
-has its uniform-keys case with the train step's records beside it),
+has its uniform-keys case with the train step's records beside it, its
+times under the deterministic flag and the summed times of a
+``fix_random`` patch step's 18 sorted calls),
 the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -474,6 +484,36 @@ def device_ms_by_kernel(fn, n=N_TIMED):
             if us > 0:
                 out[e.key] = out.get(e.key, 0.0) + us / n / 1000
     return out
+
+
+def queued_ms(fn, n=N_TIMED):
+    """Device time per call of ``fn`` from CUDA events around ``n`` calls
+    that wait behind a ~10 ms spin on the card, so the host has enqueued
+    them all before the first runs: the card's time from the first
+    kernel's start to the last one's end, gaps between kernels included,
+    host time excluded."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_split(fn, n=5, tries=3):
+    """``device_ms_by_kernel`` over ``n`` calls, asked again (up to
+    ``tries`` times) when the trace holds no device time."""
+    for _ in range(tries):
+        split = device_ms_by_kernel(fn, n)
+        if split:
+            return split
+    return {}
 
 
 def device_ms(fn, n=N_TIMED):
@@ -2310,44 +2350,212 @@ def step_telemetry(cfg, model, dev):
     return {k: float(out[k]) for k in ("cull_overflow", "part_overflow")}
 
 
-def sorted_case(name, keys, payload, n_rows, offs, scatter, exact=False):
-    """``sorted_scatter_add`` against its plain version: ``scatter_case``'s
-    check on the card (the plain version's ``index_add_`` adds in any order
-    there) and its times; then the plain version on the CPU, which adds each
-    row in record order: rows bit-equal, rows one bf16 ulp off (the kernel's
-    fixed tree order), none further beyond the f32 reordering bound (with
-    ``exact``, sums exact in any order: every row bit-equal); and two
-    launches bit-equal.  Returns scatter_case's result and the rows off."""
+# the CUDA kernels of one sorted_scatter_add call (csrc/sorted_scatter.cu):
+# no sort, no gather, no fill
+SORTED_KERNELS = {"count_kernel", "prefix_kernel", "scan_kernel", "scatter_kernel",
+                  "boundary_kernel", "work_kernel", "tile_kernel", "combine_kernel"}
+
+
+def sorted_check(name, keys, payload, n_rows, offs, scatter, exact=False):
+    """``sorted_scatter_add`` on the card, held to its contract: two
+    launches bit-equal; bit-equal to ``sorted_scatter_add_ordered`` on the
+    CPU (the kernel's own summation order); against the plain version on
+    the CPU, which adds each row in record order: rows bit-equal, rows one
+    bf16 ulp off (rows whose records span chunks), none further beyond the
+    f32 reordering bound (with ``exact``, sums exact in any order: every
+    row bit-equal).  Raises on any difference; returns (rows one ulp off
+    the plain version, rows touched)."""
     import torch
-    fns = (scatter.sorted_scatter_add, scatter.sorted_scatter_add_plain)
-    res = scatter_case(name, *fns, keys, payload, n_rows, offs, exact)
     got = scatter.sorted_scatter_add(keys, payload, n_rows, offs)
     again = scatter.sorted_scatter_add(keys, payload, n_rows, offs)
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int16), again.view(torch.int16)):
         raise AssertionError(f"{name}: two launches differ")
-    ref = scatter.sorted_scatter_add_plain(keys.cpu(), payload.cpu(), n_rows, offs)
-    g, r = got.cpu().float(), ref.float()
+    kc, pc = keys.cpu(), payload.cpu()
+    ordered = scatter.sorted_scatter_add_ordered(kc, pc, n_rows, offs)
+    g = got.cpu()
+    off_order = int((g.view(torch.int16) != ordered.view(torch.int16)).any(-1).sum())
+    if off_order:
+        raise AssertionError(f"{name}: {off_order} rows differ from the kernel's order "
+                             f"(sorted_scatter_add_ordered)")
+    ref = scatter.sorted_scatter_add_plain(kc, pc, n_rows, offs)
+    g, r = g.float(), ref.float()
     _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
     ulp = torch.ldexp(torch.ones_like(g), e - 8)
     diff = (g - r).abs()
-    keep = (keys >= 0) & (keys < n_rows)
-    k = keys[keep].long().cpu()
+    keep = (kc >= 0) & (kc < n_rows)
+    k = kc[keep].long()
     count = torch.zeros(n_rows).index_add_(0, k, torch.ones(k.shape[0]))
-    mass = torch.zeros_like(g).index_add_(0, k, payload[keep].float().abs().cpu())
+    mass = torch.zeros_like(g).index_add_(0, k, pc[keep].float().abs())
     bad = diff > ulp + count[:, None] * 2.0 ** -24 * mass
     if exact:
         bad |= diff > 0
     if bad.any():
         raise AssertionError(f"{name}: {int(bad.sum())} entries beyond "
                              f"{'0' if exact else 'one bf16 ulp'}")
-    rows_off = int((diff > 0).any(-1).sum())
+    return int((diff > 0).any(-1).sum()), int((count > 0).sum())
+
+
+def sorted_case(name, keys, payload, n_rows, offs, exact, scatter):
+    """``sorted_scatter_add`` against its plain version: ``scatter_case``'s
+    check on the card (the plain version's ``index_add_`` adds in any order
+    there) and its times, then ``sorted_check``.  Then, under
+    ``use_deterministic_algorithms`` as a ``fix_random`` step runs it, the
+    kernel's event time, its queued device time (``queued_ms``) and its
+    device split over 5 calls, which must hold only the kernel's own CUDA
+    kernels (no sort, gather or fill), and ``index_add_``'s times with the
+    flag on and off.  Returns scatter_case's result, the rows off the
+    plain version and a dict of (event ms, device ms) pairs."""
+    import torch
+    fns = (scatter.sorted_scatter_add, scatter.sorted_scatter_add_plain)
+    res = scatter_case(name, *fns, keys, payload, n_rows, offs, exact)
+    rows_off, touched = sorted_check(name, keys, payload, n_rows, offs, scatter, exact)
+    # under the deterministic flag, as fix_random sets it
+    call = lambda: scatter.sorted_scatter_add(keys, payload, n_rows, offs)
+    keep = (keys >= 0) & (keys < n_rows)
+    kd, pd = keys[keep].long(), payload[keep].float()
+    saved = torch.are_deterministic_algorithms_enabled()
+    det = {}
+    try:
+        for flag in (True, False):
+            torch.use_deterministic_algorithms(flag)
+            acc = torch.zeros((n_rows, payload.shape[1]), device=keys.device)
+            lib = lambda: acc.index_add_(0, kd, pd)
+            det[f"index_add_{'det' if flag else 'nondet'}"] = (cuda_median_ms(lib),
+                                                               queued_ms(lib))
+        torch.use_deterministic_algorithms(True)
+        det["kernel_det"] = (cuda_median_ms(call), queued_ms(call))
+        split = device_split(call)
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    if not split:
+        raise AssertionError(f"{name}: three profiles of a sorted launch saw no kernel")
+    names = {kernel_name(key) for key in split}
+    if not names <= SORTED_KERNELS:
+        raise AssertionError(f"{name}: a sorted launch ran {sorted(names - SORTED_KERNELS)}")
+    plan = scatter.sorted_plan(keys.shape[0], payload.shape[1], n_rows)
     phase("sorted-vs-cpu", card=repr(nvidia_smi()), case=name, rows=n_rows,
-          rows_touched=int((count > 0).sum()),
+          rows_touched=touched, regime="tiled" if plan.tiled else "small",
+          tiles=plan.tiles, bucket_passes=plan.passes, small_splits=plan.small_splits,
           rows_bit_equal=n_rows - rows_off, rows_one_ulp=rows_off,
-          check="kernel twice bit-equal; vs the CPU plain version in record order: "
-                + ("bit-equal" if exact else "bit-equal or one bf16 ulp"))
-    return res + (rows_off,)
+          check="kernel twice bit-equal; bit-equal to sorted_scatter_add_ordered (CPU); "
+                "vs the CPU plain version in record order: "
+                + ("bit-equal" if exact else "bit-equal or one bf16 ulp"),
+          det_ms=f"{det['kernel_det'][0]:.4f}", det_queued_ms=f"{det['kernel_det'][1]:.4f}",
+          det_device_split=repr({kernel_name(k): round(v, 4) for k, v in split.items()}),
+          det_device_split_ms=f"{sum(split.values()):.4f}",
+          index_add_det_ms=f"{det['index_add_det'][0]:.4f}",
+          index_add_det_queued_ms=f"{det['index_add_det'][1]:.4f}",
+          index_add_nondet_ms=f"{det['index_add_nondet'][0]:.4f}",
+          index_add_nondet_queued_ms=f"{det['index_add_nondet'][1]:.4f}")
+    return res + (rows_off, det)
+
+
+def sorted_cases(cfg, dev, rng, scatter):
+    """Phase 13c's sorted cases, on the card (``tools/kernel_ab.py --sorted``
+    times the same): [(name, keys, payload, n_rows, level_offsets, exact)],
+    uniform keys on the body hash first.  The train step's own records on
+    the body hash, the deformer hash and an arm's dense table; F = 16;
+    phase 3's edge cases: every record on one key (R not a multiple of 32,
+    one run over 3,126 windows), a hot coarse level (small-integer
+    payloads: exact), 10% of the keys outside the table, the self-check's
+    [1c] shape (more records than one grid covers); the patch step's
+    largest one-hot-route shape (the deformer's dense table: 6 levels x 8
+    corners x 90,112 points on 12,276 rows); a table whose rows are no
+    multiple of the tile (6 tiles, the last of 77 rows); tiles whose
+    buckets hold exactly one chunk and one more record; more than 2,048
+    tiles (two radix passes)."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.models import inb
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    bf = lambda a: t(np.asarray(a, np.float32)).to(torch.bfloat16)
+    mspec = inb.build_model_spec(cfg)
+    _, body_rows, body_offs = mspec.part_embeds[mspec.partnames.index("body")].tables()[-1]
+    _, def_rows, def_offs = mspec.deformer.embed.tables()[-1]
+    _, dd_rows, dd_offs = mspec.deformer.embed.tables()[0]
+    _, arm_rows, arm_offs = mspec.part_embeds[mspec.partnames.index("larm")].tables()[0]
+    R = (len(body_offs) - 1) * 8 * 8192
+    cases = [("body-hash", t(level_keys(rng, body_offs, 8 * 8192)), bf(rng.normal(size=(R, 1))),
+              body_rows, body_offs, False)]
+    calls = capture_train_records(cfg, dev)
+    for name, rows, offs in (("body-hash-real", body_rows, body_offs),
+                             ("deformer-hash-real", def_rows, def_offs),
+                             ("arm-dense-real", arm_rows, arm_offs)):
+        k, p = max(((k, p) for r, k, p, n, o in calls if n == rows and o == tuple(offs)),
+                   key=lambda kp: kp[0].shape[0])
+        cases.append((name, k, p, rows, offs, False))
+    del calls
+    R = 4 * 65536
+    cases.append(("F16", t(rng.integers(0, 50000, R).astype(np.int32)),
+                  bf(rng.normal(size=(R, 16))), 50000, (0, 50000), False))
+    R = 100003
+    offs4 = tuple(range(0, 4 * 50000 + 1, 50000))
+    cases.append(("pileup", t(np.full(R, 123457, np.int32)),
+                  bf(rng.integers(-8, 9, size=(R, 1))), offs4[-1], offs4, True))
+    hot = (0, 8, 8 + 16411)
+    cases.append(("hot-row", t(level_keys(rng, hot, 131072)),
+                  bf(rng.integers(-8, 9, size=(2 * 131072, 1))), hot[-1], hot, True))
+    keys = level_keys(rng, def_offs, 8 * 22528)
+    out = rng.random(len(keys)) < 0.1
+    keys[out] = rng.choice(np.array([-(2 ** 31), -7, -1, def_rows, def_rows + 5,
+                                     2 ** 31 - 1], np.int64), int(out.sum()))
+    cases.append(("out-of-range", t(keys), bf(rng.normal(size=(len(keys), 1))), def_rows,
+                  def_offs, False))
+    cases.append(("selfcheck-1c-F2", t(level_keys(rng, (0, 12276), 1081344)),
+                  bf(rng.normal(size=(1081344, 2))), 12276, (0, 12276), False))
+    R = (len(dd_offs) - 1) * 8 * 90112
+    cases.append(("onehot-patch-shape", t(level_keys(rng, dd_offs, 8 * 90112)),
+                  bf(rng.normal(size=(R, 1))), dd_rows, dd_offs, False))
+    tile, chunk = scatter.SORTED_TILE_ELEMS, scatter.SORTED_CHUNK_ELEMS
+    rows = 5 * tile + 77
+    cases.append(("ragged-tile", t(level_keys(rng, (0, rows), 262144)),
+                  bf(rng.normal(size=(262144, 1))), rows, (0, rows), False))
+    keys = np.concatenate([rng.integers(t0 * tile, (t0 + 1) * tile, chunk + extra)
+                           for t0, extra in ((1, 0), (3, 1), (4, 0))]).astype(np.int32)
+    rng.shuffle(keys)
+    rows = 6 * tile
+    cases.append(("bucket-at-chunk", t(keys), bf(rng.normal(size=(len(keys), 1))), rows,
+                  (0, rows), False))
+    rows = 2100 * tile + 7
+    cases.append(("two-pass", t(level_keys(rng, (0, rows), 655360)),
+                  bf(rng.normal(size=(655360, 1))), rows, (0, rows), False))
+    return cases
+
+
+def sorted_step_total(calls, scatter):
+    """The sorted launches of one fix_random patch step, each held to its
+    contract on its own inputs (``sorted_check``), then timed on them
+    under the deterministic flag: (launches, summed event ms, summed queued
+    device ms, summed deterministic ``index_add_`` queued device ms)."""
+    import torch
+    mine = [a for r, a in calls if r == "sorted"]
+    rows_off = [sorted_check(f"fix-random step call {i} (R={int(k.shape[0])}, n_rows={n})",
+                             k, p, n, o, scatter)[0] for i, (k, p, n, o) in enumerate(mine)]
+    ev = lib_ms = 0.0
+    each = []
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for keys, payload, n_rows, offs in mine:
+            call = lambda: scatter.sorted_scatter_add(keys, payload, n_rows, offs)
+            ev += cuda_median_ms(call)
+            each.append(queued_ms(call))
+            keep = (keys >= 0) & (keys < n_rows)
+            acc = torch.zeros((n_rows, payload.shape[1]), device=keys.device)
+            kd, pd = keys[keep].long(), payload[keep].float()
+            lib_ms += queued_ms(lambda: acc.index_add_(0, kd, pd))
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    dev_ms = sum(each)
+    phase("fix-random-step-sorted", card=repr(nvidia_smi()), launches=len(mine),
+          shapes=repr([(int(k.shape[0]), int(p.shape[1]), n) for k, p, n, _ in mine]),
+          check="each call: twice bit-equal; bit-equal to sorted_scatter_add_ordered (CPU); "
+                "bit-equal or one bf16 ulp to the CPU plain version",
+          rows_one_ulp=repr(rows_off), queued_ms_each=repr([round(v, 4) for v in each]),
+          event_ms_sum=f"{ev:.4f}", queued_ms_sum=f"{dev_ms:.4f}",
+          index_add_det_queued_ms_sum=f"{lib_ms:.4f}")
+    return len(mine), ev, dev_ms, lib_ms
 
 
 def completion_slice(dev, knn, scatter):
@@ -2502,53 +2710,10 @@ def completion_slice(dev, knn, scatter):
     #     uniform keys; two runs from one seed bit-equal; --detect_anomaly
     cfg377 = make_cfg(CFG)
     mspec377 = inb.build_model_spec(cfg377)
-    body = mspec377.part_embeds[mspec377.partnames.index("body")]
-    arm = mspec377.part_embeds[mspec377.partnames.index("larm")]
-    deformer = mspec377.deformer.embed
     rng = np.random.default_rng(13)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    bf = lambda a: t(a.astype(np.float32)).to(torch.bfloat16)
-    _, body_rows, body_offs = body.tables()[-1]
-    R = (len(body_offs) - 1) * 8 * 8192
-    results = [sorted_case("body-hash", t(level_keys(rng, body_offs, 8 * 8192)),
-                           t(rng.normal(size=(R, 1)).astype(np.float32)).to(torch.bfloat16),
-                           body_rows, body_offs, scatter)]
-    calls = capture_train_records(cfg377, dev)
-    _, def_rows, def_offs = deformer.tables()[-1]
-    _, arm_rows, arm_offs = arm.tables()[0]
-    for name, rows, offs in (("body-hash-real", body_rows, body_offs),
-                             ("deformer-hash-real", def_rows, def_offs),
-                             ("arm-dense-real", arm_rows, arm_offs)):
-        keys, payload = max(((k, p) for r, k, p, n, o in calls
-                             if n == rows and o == tuple(offs)),
-                            key=lambda kp: kp[0].shape[0])
-        results.append(sorted_case(name, keys, payload, rows, offs, scatter))
-    del calls
-    R = 4 * 65536
-    results.append(sorted_case("F16", t(rng.integers(0, 50000, R).astype(np.int32)),
-                               t(rng.normal(size=(R, 16)).astype(np.float32)).to(torch.bfloat16),
-                               50000, (0, 50000), scatter))
-    # phase 3's edge cases: every record on one key (R not a multiple of
-    # 32, one run over 3,126 windows), a hot coarse level (small-integer
-    # payloads: exact), 10% of the keys outside the table, and the
-    # self-check's [1c] shape (more records than one grid covers)
-    R = 100003
-    offs4 = tuple(range(0, 4 * 50000 + 1, 50000))
-    results.append(sorted_case("pileup", t(np.full(R, 123457, np.int32)),
-                               bf(rng.integers(-8, 9, size=(R, 1))), offs4[-1], offs4,
-                               scatter, exact=True))
-    hot = (0, 8, 8 + 16411)
-    results.append(sorted_case("hot-row", t(level_keys(rng, hot, 131072)),
-                               bf(rng.integers(-8, 9, size=(2 * 131072, 1))), hot[-1], hot,
-                               scatter, exact=True))
-    keys = level_keys(rng, def_offs, 8 * 22528)
-    out = rng.random(len(keys)) < 0.1
-    keys[out] = rng.choice(np.array([-(2 ** 31), -7, -1, def_rows, def_rows + 5,
-                                     2 ** 31 - 1], np.int64), int(out.sum()))
-    results.append(sorted_case("out-of-range", t(keys), bf(rng.normal(size=(len(keys), 1))),
-                               def_rows, def_offs, scatter))
-    results.append(sorted_case("selfcheck-1c-F2", t(level_keys(rng, (0, 12276), 1081344)),
-                               bf(rng.normal(size=(1081344, 2))), 12276, (0, 12276), scatter))
+    results = [sorted_case(name, k, p, rows, offs, exact, scatter)
+               for name, k, p, rows, offs, exact in sorted_cases(cfg377, dev, rng, scatter)]
     # index_add_ under use_deterministic_algorithms: the exact route's call
     # (an exact float32 table keeps it under fix_random)
     R = 4 * 65536
@@ -2591,6 +2756,11 @@ def completion_slice(dev, knn, scatter):
             runs.append((res.losses, {k: v.detach().clone()
                                       for k, v in res.state.model.state_dict().items()},
                          1000 * res.epochs[0].wall_s / res.epochs[0].steps))
+            if name == "a":     # one more step's sorted calls (after the copy above)
+                step_total = sorted_step_total(capture_patch_inputs(cfg, res.state, dev),
+                                               scatter)
+                if step_total[0] != FIX_ROUTES_PER_STEP:
+                    raise AssertionError(f"fix_random step: {step_total[0]} sorted calls")
             del res
     finally:
         torch.use_deterministic_algorithms(saved[0])
@@ -2642,7 +2812,7 @@ def completion_slice(dev, knn, scatter):
           size=f"{frames[0].shape[1]}x{frames[0].shape[0]}", fps=24, bytes=info["bytes"],
           encode_ms_per_frame=f"{1000 * enc_s / len(frames):.1f}",
           sample_sizes=mp4["sample_sizes"], codec=mp4["codec"], brand=mp4["brand"])
-    return total, results, fix_per_step
+    return total, results, fix_per_step, step_total
 
 
 def main() -> int:
@@ -2813,7 +2983,8 @@ def main() -> int:
     # 13. the completed modules: partition mode, packed JAX tables,
     #     fix_random on the sorted kernel, --detect_anomaly, the mp4 writer
     t0 = time.perf_counter()
-    completion_launches, sorted_res, fix_per_step = completion_slice(dev, knn, scatter)
+    completion_launches, sorted_res, fix_per_step, fix_step = completion_slice(dev, knn,
+                                                                               scatter)
     phase("completion-slice", card=repr(nvidia_smi()),
           seconds=f"{time.perf_counter() - t0:.1f}",
           launches=repr(completion_launches))
@@ -2851,13 +3022,19 @@ def main() -> int:
         rows.append(r)
     # the sorted kernel (fix_random): its uniform-keys case, the train
     # step's records beside it
-    err, ms, pms, lib_ms, bnd, dev_ms, lib_dev_ms, _ = sorted_res[0]
+    err, ms, pms, lib_ms, bnd, dev_ms, lib_dev_ms, _, det = sorted_res[0]
     r = row("sorted_scatter_add", "sorted_scatter.cu", "segmented_scatter.py:382", err, ms,
             pms, bnd, lib_ms)
     r.update(device_ms=dev_ms, library_device_ms=lib_dev_ms,
+             det_ms=det["kernel_det"][0], det_queued_ms=det["kernel_det"][1],
+             library_det_ms=det["index_add_det"][0],
+             library_det_queued_ms=det["index_add_det"][1],
              max_abs_err=max(x[0] for x in sorted_res),
-             rows_one_ulp_vs_cpu_plain=[x[-1] for x in sorted_res],
-             fix_random_patch_step_launches=fix_per_step)
+             rows_one_ulp_vs_cpu_plain=[x[7] for x in sorted_res],
+             fix_random_patch_step_launches=fix_per_step,
+             fix_random_step_sorted_event_ms=fix_step[1],
+             fix_random_step_sorted_queued_ms=fix_step[2],
+             fix_random_step_index_add_det_queued_ms=fix_step[3])
     rec = sorted_res[1]
     r.update(train_records_ms=rec[1], train_records_device_ms=rec[5],
              train_records_plain_ms=rec[2], train_records_library_ms=rec[3],

@@ -18,6 +18,15 @@ other, this, this, other: CUDA events around the call (median of 20,
 kernel (``chip_smoke.device_ms_by_kernel``), and prints the largest
 difference between their outputs.  Prints one line per case, then the
 card's ``nvidia-smi`` name and power limit.
+
+    python -m instant_nvr_tpu_torch.tools.kernel_ab OTHER_ROOT --sorted
+
+times the two checkouts' ``sorted_scatter_add`` (``fix_random``'s kernel)
+instead, on chip_smoke.py phase 13's cases and on the 18 sorted calls of
+one ``fix_random`` patch step of phase 8's subject (written into
+``data/fake_zju_smoke`` when it is not there; summed event and queued
+device times, ``chip_smoke.queued_ms``), with the deterministic flag on,
+as a ``fix_random`` step runs them, and the cases also with it off.
 """
 from __future__ import annotations
 
@@ -151,9 +160,64 @@ def scatter_ab(cs, this, other, dev, cfg):
                  other_kernels=split["other"], this_kernels=split["this"])
 
 
+def sorted_ab(cs, this, other, dev, cfg):
+    """Both checkouts' sorted kernels on phase 13's cases (the deterministic
+    flag on and off) and on one fix_random patch step's 18 calls (on)."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import run
+    from instant_nvr_tpu_torch.datasets.fake_zju import write_fake_dataset
+    from instant_nvr_tpu_torch.train.state import create_train_state
+    fns = {"other": other.sorted_scatter_add, "this": this.sorted_scatter_add}
+    saved = torch.are_deterministic_algorithms_enabled()
+    try:
+        for name, keys, payload, rows, offs, _ in cs.sorted_cases(
+                cfg, dev, np.random.default_rng(0), this):
+            call = lambda fn: fn(keys, payload, rows, offs)
+            outs = {side: call(fn).float() for side, fn in fns.items()}
+            diff = float((outs["other"] - outs["this"]).abs().max())
+            del outs
+            for flag in (True, False):
+                torch.use_deterministic_algorithms(flag)
+                ms, dev_ms, split = time_sides(cs, fns, call)
+                cs.phase("ab", kernel="sorted_scatter_add", case=name, deterministic=flag,
+                         R=int(keys.shape[0]), F=int(payload.shape[1]), n_rows=rows,
+                         max_abs_diff=f"{diff:.3e}", other_ms=ms["other"], this_ms=ms["this"],
+                         other_device_ms=dev_ms["other"], this_device_ms=dev_ms["this"],
+                         other_kernels=split["other"], this_kernels=split["this"])
+        root = os.path.join(cs.HERE, "data", "fake_zju_smoke")
+        if not os.path.isfile(os.path.join(root, "annots.npy")):
+            write_fake_dataset(root, n_frames=cs.FRAMES, n_views=3, n_verts=2000, H=512,
+                               W=512, supersample=1)
+        pcfg = cs.patch_cfg(root, os.path.join(cs.HERE, "exps", "kernel_ab_sorted"),
+                            epochs=1, fix_random=True)
+        _, _, model = run.build(pcfg, dev, 0)
+        torch.use_deterministic_algorithms(True)
+        calls = [a for r, a in cs.capture_patch_inputs(pcfg, create_train_state(pcfg, model),
+                                                        dev) if r == "sorted"]
+        del model
+        total = {side: [0.0, 0.0] for side in fns}
+        for side in ("other", "this", "this", "other"):
+            for keys, payload, rows, offs in calls:
+                fn = lambda: fns[side](keys, payload, rows, offs)
+                total[side][0] += cs.cuda_median_ms(fn) / 2
+                total[side][1] += cs.queued_ms(fn) / 2
+        cs.phase("ab", kernel="sorted_scatter_add", case="fix-random-patch-step",
+                 deterministic=True, calls=len(calls),
+                 shapes=repr([(int(k.shape[0]), int(p.shape[1]), n) for k, p, n, _ in calls]),
+                 other_event_ms_sum=f"{total['other'][0]:.4f}",
+                 this_event_ms_sum=f"{total['this'][0]:.4f}",
+                 other_queued_ms_sum=f"{total['other'][1]:.4f}",
+                 this_queued_ms_sum=f"{total['this'][1]:.4f}")
+    finally:
+        torch.use_deterministic_algorithms(saved)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other_root", help="root of the other checkout")
+    ap.add_argument("--sorted", action="store_true",
+                    help="time fix_random's sorted kernel instead")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
@@ -161,6 +225,10 @@ def main(argv=None) -> int:
     from instant_nvr_tpu_torch.config import make_cfg
     from instant_nvr_tpu_torch.ops import knn, scatter
     dev = run.resolve_device("cuda")
+    if args.sorted:
+        sorted_ab(cs, scatter, load_other(args.other_root, "scatter"), dev, make_cfg(cs.CFG))
+        print(cs.nvidia_smi())
+        return 0
     knn_ab(cs, knn, load_other(args.other_root, "knn"), dev)
     scatter_ab(cs, scatter, load_other(args.other_root, "scatter"), dev,
                make_cfg(cs.CFG))

@@ -45,14 +45,19 @@ def host_library_path(source: Path) -> Path:
 
 def build_host_library(source: Path) -> Path:
     """Compile a host C++ source with g++ unless this exact build exists;
-    raises with the compiler's output if it fails."""
+    raises a RuntimeError naming the command, with the compiler's output,
+    if it fails or if ``g++`` is not on the PATH."""
     so = host_library_path(source)
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".tmp{os.getpid()}.so")
     cmd = ["g++", *FLAGS, "-o", str(tmp), str(source)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"building {Path(source).name} failed: {e}:\n"
+                           f"{' '.join(cmd)}") from e
     if res.returncode != 0:
         raise RuntimeError(f"building {Path(source).name} failed:\n{' '.join(cmd)}\n"
                            f"{res.stdout}{res.stderr}")

@@ -33,6 +33,7 @@ if ROOT not in sys.path:
 
 from instant_nvr_tpu_torch.datasets.image_ops import write_png  # noqa: E402
 from instant_nvr_tpu_torch.eval import video, visualizer  # noqa: E402
+from instant_nvr_tpu_torch.utils import native  # noqa: E402
 
 PSNR_FLOOR = {"rendered": 39.0, "noise": 13.0, "checker-gray": 42.8,
               "checker-colour": 5.4, "odd-17x33": 35.1, "odd-513x511": 44.7}
@@ -85,7 +86,10 @@ def decode(path):
 
 
 def merge(tmp_path, frames, monkeypatch, fps=24):
-    """Write the frames as PNGs and merge them with ffmpeg out of reach."""
+    """Write the frames as PNGs and merge them with ffmpeg out of reach.
+    The encoder library is built first, while g++ is still on the PATH:
+    the empty PATH hides ffmpeg, not the compiler."""
+    video.load()
     monkeypatch.setenv("PATH", str(tmp_path / "no-ffmpeg"))
     assert shutil.which("ffmpeg") is None
     d = tmp_path / "frames"
@@ -136,6 +140,25 @@ def test_brand_and_sample_entry_match_cv2s_own_mp4v(tmp_path, monkeypatch):
     # both configurations hold a visual object sequence and a VOL
     for h in (mine["headers"], ref["headers"]):
         assert h.startswith(b"\x00\x00\x01\xb0") and b"\x00\x00\x01\x20" in h
+
+
+def test_merge_builds_the_encoder_in_an_empty_build_directory(tmp_path, monkeypatch):
+    """A fresh checkout has no built library: merge builds it, then hides
+    ffmpeg, and the file decodes."""
+    build = tmp_path / "build"
+    monkeypatch.setattr(native, "BUILD_DIR", build)
+    monkeypatch.setattr(video, "_lib", None)
+    frames = frames_of("rendered")
+    got, fps = decode(merge(tmp_path, frames, monkeypatch))
+    assert video.library_path().parent == build and video.library_path().exists()
+    assert len(got) == len(frames) and fps == 24.0
+
+
+def test_missing_compiler_raises_naming_the_command(tmp_path, monkeypatch):
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path / "no-compiler"))
+    with pytest.raises(RuntimeError, match=r"building mp4v\.cpp failed.*\n.*g\+\+ "):
+        native.build_host_library(video.SOURCE)
 
 
 @pytest.mark.parametrize("frames,match", [
