@@ -34,7 +34,8 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
   5. train slice: full-width inb_377 MSE train steps (1,024 rays x 64
      samples) through the functions of ``python -m
      instant_nvr_tpu_torch.train_net``: 3 warm-up steps, then 5 windows of 20
-     timed steps; checks the loss and that every table gradient went through
+     timed steps (``bench.measure``: step i draws from a generator reseeded
+     with i % 8); checks the loss and that every table gradient went through
      the two scatter kernels; one torch.profiler window of 5 steps gives the
      device busy share and the top kernels.
   6. train step, card vs CPU: one full-width step on 16 rays from the same
@@ -161,8 +162,19 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      steps of ``train_net --detect_anomaly``; (d) phase 9's bullet views
      written as an mp4 by the port's writer (bytes, encode ms a frame) and
      read back with its own reader.
+ 14. bench: ``python -m instant_nvr_tpu_torch.bench``'s ``main`` in this
+     process at full width under ``BENCH_MODE=both``, ``BENCH_TRACE`` and
+     ``BENCH_TRACE_PATCH`` set to a temporary directory: the MSE step and
+     the 4,096-ray patch-LPIPS step, each 3 warm-up steps, a 5-step trace
+     and 5 windows of 20; checks its last line (the root ``bench.py``'s
+     keys with ``device`` and ``power_limit``, finite positive rates within
+     their min and max, the card's name and power limit) and its launches
+     (per step one ``knn_blend``, 8 segmented and 10 one-hot scatters, no
+     ``index_add_`` and no sorted scatter); reads both traces with
+     ``tools/analyze_trace.py`` (busy share, device ms a step, top kernels).
 Then one JSON line of kernel numbers (launches: the render, train,
-self-check, patch, evaluate, data-parallel, real-subject and orbax phases together, each row also with ``orbax_launches``; a KNN row's times are the render
+self-check, patch, evaluate, data-parallel, real-subject, orbax,
+completion and bench phases together, each row also with ``orbax_launches``; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
@@ -171,8 +183,9 @@ steps, and a row on the patch path its times on the patch step's own
 inputs as ``patch_shape_*``; ``knn_blend`` also has its launches per eval
 frame as read in the second evaluation, ``eval_frame_launches``, and its times on one eval chunk's own
 inputs as ``eval_shape_*``; every row has phase 10's launches in each
-rank, ``dp_launches_per_rank``, and phase 13's, ``completion_launches``,
-which ``launches`` includes; the sorted kernel's row, phase 13's only,
+rank, ``dp_launches_per_rank``, phase 13's, ``completion_launches``,
+and phase 14's, ``bench_launches``, with its launches per bench step,
+``bench_step_launches``; the sorted kernel's row, phase 13's only,
 has its uniform-keys case with the train step's records beside it, its
 times under the deterministic flag and the summed times of a
 ``fix_random`` patch step's 18 sorted calls),
@@ -189,7 +202,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(HERE, "configs", "inb", "inb_377.yaml")
 N_TIMED = 20
-WARMUP_STEPS, WINDOWS, WINDOW_STEPS, PROFILE_STEPS = 3, 5, 20, 5
+PROFILE_STEPS = 5
 
 
 def phase(label, **kv):
@@ -506,11 +519,13 @@ def queued_ms(fn, n=N_TIMED):
     return a.elapsed_time(b) / n
 
 
-def device_split(fn, n=5, tries=3):
+def device_split(fn, n=5, tries=4):
     """``device_ms_by_kernel`` over ``n`` calls, asked again (up to
-    ``tries`` times) when the trace holds no device time."""
-    for _ in range(tries):
-        split = device_ms_by_kernel(fn, n)
+    ``tries`` times, each over 4x the calls of the one before) when the
+    trace holds no device time: a window of a few calls of a ~0.01 ms
+    launch has come back empty three times running."""
+    for i in range(tries):
+        split = device_ms_by_kernel(fn, n * 4 ** i)
         if split:
             return split
     return {}
@@ -807,31 +822,25 @@ def profile_steps(trainer, gen):
 
 
 def train_slice(cfg, dev, knn, scatter):
-    """Full-width MSE steps through train_net's functions; returns the
-    launch counts of the run and the scatter routes of one step."""
+    """Full-width MSE steps through train_net's functions, timed by the
+    bench's protocol (``bench.measure``); returns the launch counts of the
+    run and the scatter routes of one step."""
     import numpy as np
     import torch
-    from instant_nvr_tpu_torch import train_net
+    from instant_nvr_tpu_torch import bench, train_net
     from instant_nvr_tpu_torch.train.step import table_grad_launches
     trainer = train_net.build_trainer(cfg, dev, seed=0)
     routes = table_grad_launches(trainer.mspec, trainer.rspec)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev)
     n_rays = int(trainer.batch["ray_o"].shape[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(knn, scatter)
-    losses, rates = [], []
-    for _ in range(WARMUP_STEPS):
-        _, stats = trainer.step(trainer.state, trainer.batch, generator=gen)
-        losses.append(stats["loss"])
+    losses = []
+    bench.seeded_steps(trainer.step, trainer.state, trainer.batch, gen,
+                       bench.WARMUP_STEPS, losses)
     torch.cuda.synchronize()
-    for _ in range(WINDOWS):
-        t0 = time.perf_counter()
-        for _ in range(WINDOW_STEPS):
-            _, stats = trainer.step(trainer.state, trainer.batch, generator=gen)
-            losses.append(stats["loss"])
-        torch.cuda.synchronize()
-        rates.append(WINDOW_STEPS * n_rays / (time.perf_counter() - t0))
+    rates = bench.measure(trainer.step, trainer.state, trainer.batch, gen, losses)
     steps = len(losses)
     counts = {"knn_blend": knn.knn_blend.launches,
               "segmented_scatter_add": scatter.segmented_scatter_add.launches,
@@ -851,10 +860,9 @@ def train_slice(cfg, dev, knn, scatter):
     if counts != want or routes["exact"] or exact_calls:
         raise AssertionError(f"launches {counts} != {want} (routes per step "
                              f"{dict(routes)}, exact index_add_ calls {exact_calls})")
-    rates.sort()
     med = rates[len(rates) // 2]
     phase("train", config="inb_377", rays=n_rays, samples=trainer.rspec.n_samples,
-          steps=steps, windows=f"{WINDOWS}x{WINDOW_STEPS}",
+          steps=steps, windows=f"{bench.WINDOWS}x{bench.STEPS_PER_WINDOW}",
           train_rays_per_sec=f"{med:.1f}", min=f"{rates[0]:.1f}",
           max=f"{rates[-1]:.1f}", ms_per_step=f"{1000 * n_rays / med:.2f}",
           peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{loss[0]:.5f}",
@@ -2429,7 +2437,7 @@ def sorted_case(name, keys, payload, n_rows, offs, exact, scatter):
     finally:
         torch.use_deterministic_algorithms(saved)
     if not split:
-        raise AssertionError(f"{name}: three profiles of a sorted launch saw no kernel")
+        raise AssertionError(f"{name}: no profile of a sorted launch saw a kernel")
     names = {kernel_name(key) for key in split}
     if not names <= SORTED_KERNELS:
         raise AssertionError(f"{name}: a sorted launch ran {sorted(names - SORTED_KERNELS)}")
@@ -2815,6 +2823,93 @@ def completion_slice(dev, knn, scatter):
     return total, results, fix_per_step, step_total
 
 
+# the last line of ``python -m instant_nvr_tpu_torch.bench`` under
+# BENCH_MODE=both: the repo's bench.py keys and the card's
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "windows", "steps_per_window",
+              "min", "max", "train_rays_per_sec_patch", "patch_min", "patch_max",
+              "vs_baseline_patch", "device", "power_limit"}
+# a bench step's launches: the MSE and the patch step route alike
+BENCH_STEP_LAUNCHES = {"knn_blend": 1, "knn_topk": 0, "segmented_scatter_add": 8,
+                       "onehot_scatter_add": 10}
+
+
+def bench_slice(dev, knn, scatter):
+    """Phase 14: ``python -m instant_nvr_tpu_torch.bench`` in this process
+    at full width, both modes, both traces; returns (its launches, its
+    steps)."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+    import torch
+    from instant_nvr_tpu_torch import bench
+    from instant_nvr_tpu_torch.tools import analyze_trace
+    with tempfile.TemporaryDirectory() as tmp:
+        traces = {"mse": os.path.join(tmp, "mse"), "patch": os.path.join(tmp, "patch")}
+        env = {"BENCH_MODE": "both", "BENCH_TRACE": traces["mse"],
+               "BENCH_TRACE_PATCH": traces["patch"]}
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        reset_counts(knn, scatter)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                out = bench.main(["--cfg_file", CFG])
+        finally:
+            print(buf.getvalue(), end="", flush=True)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        wall_s = time.perf_counter() - t0
+        got = launch_counts(knn, scatter)
+        exact_calls = scatter.exact_scatter_add.calls
+        last = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if last != out or set(last) != BENCH_KEYS:
+            raise AssertionError(f"bench's last line {last}: keys "
+                                 f"{sorted(set(last) ^ BENCH_KEYS)} differ")
+        if (last["metric"], last["unit"], last["windows"], last["steps_per_window"]) != (
+                "train_rays_per_sec", "rays/s", bench.WINDOWS, bench.STEPS_PER_WINDOW):
+            raise AssertionError(f"bench's protocol keys: {last}")
+        for v, lo, hi, vs in ((last["value"], last["min"], last["max"], last["vs_baseline"]),
+                              (last["train_rays_per_sec_patch"], last["patch_min"],
+                               last["patch_max"], last["vs_baseline_patch"])):
+            if not (all(math.isfinite(x) and x > 0 for x in (v, lo, hi, vs))
+                    and lo <= v <= hi
+                    and abs(vs - v / bench.BASELINE_RAYS_PER_SEC) <= 1e-3):
+                raise AssertionError(f"bench rates: {v} in [{lo}, {hi}], vs {vs}")
+        smi = nvidia_smi()
+        if (last["device"] != torch.cuda.get_device_name(0)
+                or last["power_limit"] != smi.split(",")[-1].strip()):
+            raise AssertionError(f"bench's card {last['device']!r}, "
+                                 f"{last['power_limit']!r} vs {smi!r}")
+        steps = 2 * (bench.WARMUP_STEPS + bench.TRACE_STEPS
+                     + bench.WINDOWS * bench.STEPS_PER_WINDOW)
+        want = {k: steps * n for k, n in BENCH_STEP_LAUNCHES.items()}
+        if got != want or exact_calls or scatter.sorted_scatter_add.launches:
+            raise AssertionError(f"bench launches {got} != {want} ({steps} steps; "
+                                 f"exact index_add_ calls {exact_calls}, sorted "
+                                 f"{scatter.sorted_scatter_add.launches})")
+        busy = {}
+        for name, d in traces.items():
+            summary = analyze_trace.summarize(analyze_trace.find_trace(d), top_k=10)
+            top = sorted(summary["buckets"].items(), key=lambda kv: -kv[1])[:5]
+            busy[name] = summary["busy"]
+            phase("bench-trace", mode=name, steps=bench.TRACE_STEPS,
+                  device_busy=("not measured" if summary["busy"] is None
+                               else f"{summary['busy']:.3f}"),
+                  device_ms_per_step=("not measured" if summary["device_ms"] is None
+                                      else f"{summary['device_ms'] / bench.TRACE_STEPS:.3f}"),
+                  top_kernels=repr([f"{k[:60]}:{ms / bench.TRACE_STEPS:.3f}ms/step"
+                                    for k, ms in top]))
+    phase("bench", card=repr(smi), seconds=f"{wall_s:.1f}", steps=steps,
+          mse_rays_per_sec=last["value"], patch_rays_per_sec=last["train_rays_per_sec_patch"],
+          busy=repr(busy), launches=repr(got))
+    return got, steps
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2990,6 +3085,10 @@ def main() -> int:
           launches=repr(completion_launches))
     counts = {k: counts.get(k, 0) + v for k, v in completion_launches.items()}
 
+    # 14. python -m instant_nvr_tpu_torch.bench: both modes, both traces
+    bench_launches, bench_steps = bench_slice(dev, knn, scatter)
+    counts = {k: v + bench_launches.get(k, 0) for k, v in counts.items()}
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -3068,6 +3167,8 @@ def main() -> int:
         r["dp_launches_per_rank"] = [d.get(r["name"], 0) for d in dp_launches]
         r["orbax_launches"] = orbax_launches.get(r["name"], 0)
         r["completion_launches"] = completion_launches[r["name"]]
+        r["bench_launches"] = bench_launches.get(r["name"], 0)
+        r["bench_step_launches"] = bench_launches.get(r["name"], 0) // bench_steps
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -67,17 +67,28 @@ class Trainer(NamedTuple):
     batch: Dict[str, torch.Tensor]
 
 
-def synthetic_batch(cfg, device: torch.device, tiny: bool = False,
-                    n_rays: int | None = None) -> Dict[str, torch.Tensor]:
-    """The fixed training batch of ``bench.py`` (``tiny``: of the CPU tests)."""
+def synthetic_batch_np(cfg, tiny: bool = False,
+                       n_rays: int | None = None) -> Dict[str, np.ndarray]:
+    """The fixed training batch of ``bench.py`` as host arrays (``tiny``:
+    of the CPU tests)."""
     from .datasets import synthetic
     scene = synthetic.make_scene(n_verts=600 if tiny else 1200,
                                  grid=16 if tiny else 32)
     side = 32 if tiny else 128
     view = synthetic.render_gt(scene, H=side, W=side)
-    batch = synthetic.make_batch(scene, view, n_rays=n_rays or cfg.N_rand)
+    return synthetic.make_batch(scene, view, n_rays=n_rays or cfg.N_rand)
+
+
+def to_tensors(batch: Dict[str, np.ndarray],
+               device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v), device=device)
             for k, v in batch.items()}
+
+
+def synthetic_batch(cfg, device: torch.device, tiny: bool = False,
+                    n_rays: int | None = None) -> Dict[str, torch.Tensor]:
+    """:func:`synthetic_batch_np` on ``device``."""
+    return to_tensors(synthetic_batch_np(cfg, tiny, n_rays), device)
 
 
 def build_trainer(cfg, device: torch.device, seed: int = 0,
