@@ -33,7 +33,8 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      card's render against the CPU's (plain path) on a small view.
   5. train slice: full-width inb_377 MSE train steps (1,024 rays x 64
      samples) through the functions of ``python -m
-     instant_nvr_tpu_torch.train_net``: 3 warm-up steps, then 5 windows of 20
+     instant_nvr_tpu_torch.train_net`` (its route: captured): 3 warm-up
+     steps and the capture, then 5 windows of 20
      timed steps (``bench.measure``: step i draws from a generator reseeded
      with i % 8); checks the loss and that every table gradient went through
      the two scatter kernels; one torch.profiler window of 5 steps gives the
@@ -49,8 +50,8 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
   8. patch slice: the training run of ``python -m
      instant_nvr_tpu_torch.train_net --cfg_file configs/inb/inb_fake.yaml``
      (``train/loop.py:train``) at full width in patch-LPIPS mode (4,096
-     rays a step as one 64x64 patch): writes the fake subject with the
-     port's own writer (3 views x 5 frames at 512^2, 2,000 vertices;
+     rays a step as one 64x64 patch, on the captured route): writes the
+     fake subject with the port's own writer (3 views x 5 frames at 512^2, 2,000 vertices;
      supersample cut to 1), trains 2 epochs of 10 steps through both
      ``ratio`` stages of inb_377 (0.3, then 0.5 with the head focus), then
      resumes from the checkpoint for a third epoch; checks finite losses,
@@ -61,7 +62,8 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      items; times each kernel on one patch step's own inputs; holds one
      patch step (``patch_size`` 16) card vs CPU.
   9. eval slice, on phase 8's checkpoint, through the functions of ``python
-     -m instant_nvr_tpu_torch.run --type evaluate|prune|tmesh|tdmesh|bullet``:
+     -m instant_nvr_tpu_torch.run --type evaluate|prune|tmesh|tdmesh|bullet``
+     (their frames captured, as on the card by default):
      evaluates the test split (view 2 x 5 frames at 512^2, the budgets
      raised on the first frame and saved), printing each frame's render and
      metrics ms, the warm median, rays, chunks, peak memory, PSNR, SSIM and
@@ -164,17 +166,41 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      read back with its own reader.
  14. bench: ``python -m instant_nvr_tpu_torch.bench``'s ``main`` in this
      process at full width under ``BENCH_MODE=both``, ``BENCH_TRACE`` and
-     ``BENCH_TRACE_PATCH`` set to a temporary directory: the MSE step and
-     the 4,096-ray patch-LPIPS step, each 3 warm-up steps, a 5-step trace
-     and 5 windows of 20; checks its last line (the root ``bench.py``'s
-     keys with ``device`` and ``power_limit``, finite positive rates within
-     their min and max, the card's name and power limit) and its launches
-     (per step one ``knn_blend``, 8 segmented and 10 one-hot scatters, no
+     ``BENCH_TRACE_PATCH`` set to a temporary directory: the captured MSE
+     step and the 4,096-ray patch-LPIPS step, each 3 warm-up steps and
+     the capture, a 5-step trace and 5 windows of 20; checks its last line (the root
+     ``bench.py``'s keys with ``device``, ``power_limit``, ``route``
+     captured and 2 ``captures``, finite positive rates within their min
+     and max, the card's name and power limit) and its launches (per step
+     one ``knn_blend``, 8 segmented and 10 one-hot scatters, no
      ``index_add_`` and no sorted scatter); reads both traces with
-     ``tools/analyze_trace.py`` (busy share, device ms a step, top kernels).
+     ``tools/analyze_trace.py`` (busy share, device ms a step, top
+     kernels); then runs it once more ``--eager``, untraced.
+ 15. captured slice (``train/compiled.py``, ``eval/runner.py:CapturedFrame``):
+     (a) the full-width inb_377 MSE step and the patch-LPIPS step, 10 steps
+     of each route from the seed-0 state with the same draws and an epoch
+     boundary (``ep_iter`` 5: an lr change) inside them: losses within
+     rtol 1e-3 and parameters within phase 6's 2.1 lr a step; then the
+     patch step under ``fix_random`` (every table gradient through the
+     sorted kernel), where the losses, every parameter and both moments
+     must be bit-equal; (b) launches as routed on both routes, each graph
+     holding one ``knn_blend`` and 8 segmented and 10 one-hot launches a
+     replay (18 sorted under ``fix_random``), 1 capture and 7 replays, the
+     scatter workspace all zero after; (c) phase 8's checkpoint loaded
+     into two states, 4 steps of each route on one item of its subject
+     (the captured route's fourth is its first replay; its device step
+     counter at the state's step), at (a)'s tolerances; (d) one 512^2 test
+     frame of that checkpoint, 3 renders a route, then 2 untraced in
+     turns, every map bit-equal to the eager one, and a profiled warm
+     frame a route (``tools/profile_eval.py``: device ms, busy share,
+     pageable host-to-device copies); (e) ``bench.measure`` of each route
+     in turns (eager, captured, eager, captured), MSE and patch: ms a
+     step, rays/s, peak memory, captures, and a traced 5-step window on
+     the last turn of each (busy share, device ms a step); each line with
+     the card's name and power limit.
 Then one JSON line of kernel numbers (launches: the render, train,
 self-check, patch, evaluate, data-parallel, real-subject, orbax,
-completion and bench phases together, each row also with ``orbax_launches``; a KNN row's times are the render
+completion, bench and captured phases together, each row also with ``orbax_launches``; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
@@ -185,7 +211,8 @@ frame as read in the second evaluation, ``eval_frame_launches``, and its times o
 inputs as ``eval_shape_*``; every row has phase 10's launches in each
 rank, ``dp_launches_per_rank``, phase 13's, ``completion_launches``,
 and phase 14's, ``bench_launches``, with its launches per bench step,
-``bench_step_launches``; the sorted kernel's row, phase 13's only,
+``bench_step_launches``, phase 15's, ``captured_launches``, and its
+graphs' launches a replay, ``captured_replay_launches``; the sorted kernel's row, phase 13's only,
 has its uniform-keys case with the train step's records beside it, its
 times under the deterministic flag and the summed times of a
 ``fix_random`` patch step's 18 sorted calls),
@@ -838,7 +865,9 @@ def train_slice(cfg, dev, knn, scatter):
     reset_counts(knn, scatter)
     losses = []
     bench.seeded_steps(trainer.step, trainer.state, trainer.batch, gen,
-                       bench.WARMUP_STEPS, losses)
+                       bench.WARMUP_STEPS + (bench.CAPTURE_STEPS
+                                             if trainer.route.name == "captured" else 0),
+                       losses)
     torch.cuda.synchronize()
     rates = bench.measure(trainer.step, trainer.state, trainer.batch, gen, losses)
     steps = len(losses)
@@ -867,7 +896,7 @@ def train_slice(cfg, dev, knn, scatter):
           max=f"{rates[-1]:.1f}", ms_per_step=f"{1000 * n_rays / med:.2f}",
           peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{loss[0]:.5f}",
           loss_last=f"{loss[-1]:.5f}", routes_per_step=repr(dict(routes)),
-          launches=repr(counts))
+          launches=repr(counts), route=repr(str(trainer.route)))
     busy, top_kernels, top_ops = profile_steps(trainer, gen)
     phase("train-profile", steps=PROFILE_STEPS,
           device_busy=("not measured" if busy is None else f"{busy:.3f}"),
@@ -1864,7 +1893,7 @@ def real_slice(dev, knn, scatter):
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.tools import import_torch_ckpt, prepare_dataset
     from instant_nvr_tpu_torch.train import checkpoint, loop
-    from instant_nvr_tpu_torch.train.state import AdamBf16Mu, make_optimizer
+    from instant_nvr_tpu_torch.train.state import AdamBf16Mu, OptaxAdam, make_optimizer
     from instant_nvr_tpu_torch.train.step import table_grad_launches
     shutil.rmtree(REAL_DIR, ignore_errors=True)
     os.makedirs(REAL_DIR)
@@ -1958,7 +1987,7 @@ def real_slice(dev, knn, scatter):
     reset_counts(knn, scatter)
     res32 = loop.train(cfg32, dev, resume=False)
     check_patch_run("real-subject train, float32 moments", res32, 0, routes, knn, scatter)
-    if type(res32.state.optimizer) is not torch.optim.Adam:
+    if type(res32.state.optimizer) is not OptaxAdam:
         raise AssertionError(f"float32 moments: {type(res32.state.optimizer).__name__}")
     e32 = res32.epochs[0]
     del res32
@@ -2827,7 +2856,7 @@ def completion_slice(dev, knn, scatter):
 # BENCH_MODE=both: the repo's bench.py keys and the card's
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "windows", "steps_per_window",
               "min", "max", "train_rays_per_sec_patch", "patch_min", "patch_max",
-              "vs_baseline_patch", "device", "power_limit"}
+              "vs_baseline_patch", "device", "power_limit", "route", "captures"}
 # a bench step's launches: the MSE and the patch step route alike
 BENCH_STEP_LAUNCHES = {"knn_blend": 1, "knn_topk": 0, "segmented_scatter_add": 8,
                        "onehot_scatter_add": 10}
@@ -2835,8 +2864,9 @@ BENCH_STEP_LAUNCHES = {"knn_blend": 1, "knn_topk": 0, "segmented_scatter_add": 8
 
 def bench_slice(dev, knn, scatter):
     """Phase 14: ``python -m instant_nvr_tpu_torch.bench`` in this process
-    at full width, both modes, both traces; returns (its launches, its
-    steps)."""
+    at full width, both modes, both traces, on the captured route; then
+    once ``--eager``, untraced; returns (the captured run's launches, its
+    steps, the eager run's launches)."""
     import contextlib
     import io
     import math
@@ -2870,8 +2900,10 @@ def bench_slice(dev, knn, scatter):
         if last != out or set(last) != BENCH_KEYS:
             raise AssertionError(f"bench's last line {last}: keys "
                                  f"{sorted(set(last) ^ BENCH_KEYS)} differ")
-        if (last["metric"], last["unit"], last["windows"], last["steps_per_window"]) != (
-                "train_rays_per_sec", "rays/s", bench.WINDOWS, bench.STEPS_PER_WINDOW):
+        if (last["metric"], last["unit"], last["windows"], last["steps_per_window"],
+                last["route"], last["captures"]) != (
+                "train_rays_per_sec", "rays/s", bench.WINDOWS, bench.STEPS_PER_WINDOW,
+                "captured", 2):
             raise AssertionError(f"bench's protocol keys: {last}")
         for v, lo, hi, vs in ((last["value"], last["min"], last["max"], last["vs_baseline"]),
                               (last["train_rays_per_sec_patch"], last["patch_min"],
@@ -2885,7 +2917,7 @@ def bench_slice(dev, knn, scatter):
                 or last["power_limit"] != smi.split(",")[-1].strip()):
             raise AssertionError(f"bench's card {last['device']!r}, "
                                  f"{last['power_limit']!r} vs {smi!r}")
-        steps = 2 * (bench.WARMUP_STEPS + bench.TRACE_STEPS
+        steps = 2 * (bench.WARMUP_STEPS + bench.CAPTURE_STEPS + bench.TRACE_STEPS
                      + bench.WINDOWS * bench.STEPS_PER_WINDOW)
         want = {k: steps * n for k, n in BENCH_STEP_LAUNCHES.items()}
         if got != want or exact_calls or scatter.sorted_scatter_add.launches:
@@ -2905,9 +2937,381 @@ def bench_slice(dev, knn, scatter):
                   top_kernels=repr([f"{k[:60]}:{ms / bench.TRACE_STEPS:.3f}ms/step"
                                     for k, ms in top]))
     phase("bench", card=repr(smi), seconds=f"{wall_s:.1f}", steps=steps,
+          route=last["route"], captures=last["captures"],
           mse_rays_per_sec=last["value"], patch_rays_per_sec=last["train_rays_per_sec_patch"],
           busy=repr(busy), launches=repr(got))
-    return got, steps
+    # the eager route, untraced, both modes
+    saved = os.environ.get("BENCH_MODE")
+    os.environ["BENCH_MODE"] = "both"
+    reset_counts(knn, scatter)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            eager = bench.main(["--cfg_file", CFG, "--eager"])
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+        if saved is None:
+            os.environ.pop("BENCH_MODE")
+        else:
+            os.environ["BENCH_MODE"] = saved
+    eager_got = launch_counts(knn, scatter)
+    if (set(eager) != BENCH_KEYS or eager["route"] != "eager" or eager["captures"]
+            or eager["device"] != last["device"]):
+        raise AssertionError(f"bench --eager's last line {eager}")
+    phase("bench-eager", card=repr(smi), seconds=f"{time.perf_counter() - t0:.1f}",
+          route=eager["route"], mse_rays_per_sec=eager["value"],
+          patch_rays_per_sec=eager["train_rays_per_sec_patch"],
+          captured_mse_rays_per_sec=last["value"],
+          captured_patch_rays_per_sec=last["train_rays_per_sec_patch"],
+          launches=repr(eager_got))
+    return got, steps, eager_got
+
+
+# phase 15: steps of each route from one seed-0 state, an epoch boundary
+# (an lr change of the schedule) inside them
+CAPTURE_STEPS = 10
+CAPTURE_EP_ITER = 5
+
+
+def route_run(route, cfg, batch, patch_fn, dev, knn, scatter, steps=CAPTURE_STEPS,
+              state=None):
+    """``steps`` steps of ``route`` ('eager' or 'captured') from ``state``
+    (default a seed-0 one), step i drawing from a generator seeded i ->
+    (losses, state, the step, launches)."""
+    import torch
+    from instant_nvr_tpu_torch import bench
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.train.compiled import CapturedStep
+    from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
+    mspec, rspec, lw = inb.build_model_spec(cfg), make_render_spec(cfg), make_loss_weights(cfg)
+    state = bench.new_state(cfg, dev) if state is None else state
+    step = (make_train_step(mspec, rspec, lw, patch_fn) if route == "eager"
+            else CapturedStep(mspec, rspec, lw, patch_fn, n_steps=state.step + steps))
+    gen = torch.Generator(device=dev)
+    reset_counts(knn, scatter)
+    losses = []
+    for i in range(steps):
+        gen.manual_seed(i)
+        _, stats = step(state, batch, generator=gen)
+        losses.append(stats["loss"].clone())
+    torch.cuda.synchronize()
+    got = launch_counts(knn, scatter)
+    got["sorted_scatter_add"] = scatter.sorted_scatter_add.launches
+    return torch.stack(losses).cpu(), state, step, got
+
+
+def state_bits(state):
+    """Every parameter and moment of ``state``, by name, on the host."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    out = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
+    for p, st in state.optimizer.state.items():
+        out[names[id(p)] + ".exp_avg"] = st["exp_avg"].cpu().clone()
+        out[names[id(p)] + ".exp_avg_sq"] = st["exp_avg_sq"].cpu().clone()
+    return out
+
+
+def params_agree(label, a, b, lr, steps):
+    """Phase 6's parameter bound over ``steps`` steps: no entry apart by
+    more than 2.1 lr a step; returns (worst entry distance in lr, entries
+    apart by more than 1e-6)."""
+    worst, moved = 0.0, 0
+    for k, p in a.items():
+        if k.endswith((".exp_avg", ".exp_avg_sq")):
+            continue
+        d = (p.float() - b[k].float()).abs()
+        worst = max(worst, float(d.max()) / lr)
+        moved += int((d > 1e-6).sum())
+    if worst > 2.1 * steps:
+        raise AssertionError(f"{label}: a parameter differs by {worst:.3f} lr "
+                             f"> 2.1 lr x {steps} steps")
+    return worst, moved
+
+
+def graph_launches(step):
+    """The launches one replay of each of ``step``'s graphs counts, by kernel."""
+    from instant_nvr_tpu_torch.train import compiled
+    names = [f.__name__ if attr == "launches" else "exact_index_add"
+             for f, attr in compiled._COUNTERS]
+    return [{n: c for n, c in zip(names, g.launches) if c}
+            for g in step.graphs.values() if g.graph is not None]
+
+
+def captured_training(cfg, dev, knn, scatter, routes):
+    """15(a)-(b): both routes 10 steps from one seed-0 state, MSE and patch,
+    then the patch step under fix_random; returns the captured runs'
+    launches and each graph's launches a replay."""
+    import torch
+    from instant_nvr_tpu_torch import bench, train_net
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    lr = cfg.train.lr
+    batches = {"mse": (train_net.synthetic_batch(cfg, dev), None),
+               "patch": (train_net.to_tensors(bench.patch_batch_np(cfg), dev),
+                         make_patch_loss_fn(cfg))}
+    total = {}
+    per_replay = {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    for mode, (batch, pfn) in batches.items():
+        le, se, _, got_e = route_run("eager", cfg, batch, pfn, dev, knn, scatter)
+        lc, sc, step, got_c = route_run("captured", cfg, batch, pfn, dev, knn, scatter)
+        add(got_c)
+        want = {"knn_blend": CAPTURE_STEPS, "knn_topk": 0,
+                "segmented_scatter_add": CAPTURE_STEPS * routes["segmented"],
+                "onehot_scatter_add": CAPTURE_STEPS * routes["onehot"],
+                "sorted_scatter_add": 0}
+        graphs = graph_launches(step)
+        one = {"knn_blend": 1, "segmented_scatter_add": routes["segmented"],
+               "onehot_scatter_add": routes["onehot"]}
+        if got_c != want or got_e != want or graphs != [one] \
+                or (step.captures, step.replays) != (1, CAPTURE_STEPS - 3):
+            raise AssertionError(f"captured {mode}: launches {got_c} (eager {got_e}) != "
+                                 f"{want}; a replay {graphs}; captures {step.captures}, "
+                                 f"replays {step.replays}")
+        per_replay[mode] = graphs[0]
+        assert_workspace_zero(f"captured {mode} steps")
+        rel = float(((lc - le).abs() / le.abs()).max())
+        if not torch.isfinite(lc).all() or rel > 1e-3:
+            raise AssertionError(f"captured {mode}: losses {lc.tolist()} vs eager "
+                                 f"{le.tolist()} (rtol 1e-3)")
+        worst, moved = params_agree(f"captured {mode}", state_bits(sc), state_bits(se),
+                                    lr, CAPTURE_STEPS)
+        phase("captured-train", card=repr(nvidia_smi()), mode=mode, steps=CAPTURE_STEPS,
+              ep_iter=CAPTURE_EP_ITER,
+              lr_steps=[f"{sc.schedule(t):.6e}" for t in (0, CAPTURE_EP_ITER)],
+              loss_eager=[f"{v:.6f}" for v in le.tolist()],
+              loss_captured=[f"{v:.6f}" for v in lc.tolist()],
+              loss_max_rel_diff=f"{rel:.3e}", param_max_diff_lr=f"{worst:.4f}",
+              params_differing_1e6=moved, captures=step.captures, replays=step.replays,
+              launches_per_replay=repr(graphs[0]), launches=repr(got_c),
+              tol=repr("loss rtol 1e-3; params <= 2.1 lr a step (phase 6)"))
+        del se, sc, step
+
+    # fix_random: every table gradient through the sorted kernel, both
+    # routes bit for bit
+    fcfg = cfg.merged({"fix_random": True})
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    try:
+        if not train_net.apply_fix_random(fcfg):
+            raise AssertionError("fix_random not applied")
+        froutes = table_grad_launches(inb.build_model_spec(fcfg), make_render_spec(fcfg))
+        batch, pfn = batches["patch"]
+        le, se, _, got_e = route_run("eager", fcfg, batch, pfn, dev, knn, scatter)
+        lc, sc, step, got_c = route_run("captured", fcfg, batch, pfn, dev, knn, scatter)
+    finally:
+        torch.use_deterministic_algorithms(saved[0])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+    add(got_c)
+    want = {"knn_blend": CAPTURE_STEPS, "knn_topk": 0, "segmented_scatter_add": 0,
+            "onehot_scatter_add": 0,
+            "sorted_scatter_add": CAPTURE_STEPS * FIX_ROUTES_PER_STEP}
+    graphs = graph_launches(step)
+    if froutes != {"sorted": FIX_ROUTES_PER_STEP} or got_c != want or got_e != want \
+            or graphs != [{"knn_blend": 1, "sorted_scatter_add": FIX_ROUTES_PER_STEP}]:
+        raise AssertionError(f"captured fix_random: routes {froutes}, launches {got_c} "
+                             f"(eager {got_e}) != {want}; a replay {graphs}")
+    per_replay["fix_random"] = graphs[0]
+    a, b = state_bits(sc), state_bits(se)
+    differing = [k for k in a if not torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8))]
+    phase("captured-fix-random", card=repr(nvidia_smi()), steps=CAPTURE_STEPS,
+          losses_bit_equal=torch.equal(lc, le), tensors=len(a),
+          tensors_differing=differing, launches_per_replay=repr(graphs[0]),
+          check="losses, every parameter and both moments bit-equal, captured vs eager")
+    if not torch.equal(lc, le) or differing:
+        raise AssertionError(f"captured fix_random differs from eager: losses "
+                             f"{lc.tolist()} vs {le.tolist()}, tensors {differing[:8]}")
+    del se, sc, step
+    return total, per_replay
+
+
+def captured_resume(dev, knn, scatter):
+    """15(c): phase 8's checkpoint into two states; 4 steps of each route on
+    one item of its subject (the captured route's fourth its first
+    replay)."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import run
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.train import checkpoint, loop
+    from instant_nvr_tpu_torch.train.stages import stage_for_epoch
+    from instant_nvr_tpu_torch.train.state import create_train_state
+    root = os.path.join(HERE, "data", "fake_zju_smoke")
+    exp = os.path.join(HERE, "exps", "chip_smoke_patch")
+    cfg = patch_cfg(root, exp, epochs=3)
+    ecfg = stage_for_epoch(cfg, 1)
+    item = TPoseDataset(ecfg, "train").get_item(0, ratio=ecfg.ratio,
+                                                rng=np.random.default_rng(3))
+    batch = loop.device_batch(item, 0.1, lambda v: torch.as_tensor(np.asarray(v),
+                                                                   device=dev))
+    runs = {}
+    for route in ("eager", "captured"):
+        state = create_train_state(cfg, run.build(cfg, dev, seed=1)[2])
+        meta = checkpoint.load_checkpoint(cfg.trained_model_dir, state)
+        start = state.step
+        losses, state, step, got = route_run(route, cfg, batch,
+                                             loop.make_patch_loss_fn(cfg), dev, knn,
+                                             scatter, steps=4, state=state)
+        if state.step != start + 4 or (route == "captured" and (
+                step.replays != 1 or int(step.dstep) != state.step)):
+            raise AssertionError(f"resume {route}: step {start} -> {state.step}")
+        runs[route] = (losses, state_bits(state), got)
+    (le, be, _), (lc, bc, got) = runs["eager"], runs["captured"]
+    rel = float(((lc - le).abs() / le.abs()).max())
+    worst, moved = params_agree("captured resume", bc, be, cfg.train.lr, 4)
+    phase("captured-resume", card=repr(nvidia_smi()), epoch=int(meta["epoch"]),
+          from_step=start, steps=4, loss_eager=[f"{v:.6f}" for v in le.tolist()],
+          loss_captured=[f"{v:.6f}" for v in lc.tolist()], loss_max_rel_diff=f"{rel:.3e}",
+          param_max_diff_lr=f"{worst:.4f}", params_differing_1e6=moved,
+          tol=repr("loss rtol 1e-3; params <= 2.1 lr a step (phase 6)"))
+    if rel > 1e-3:
+        raise AssertionError(f"captured resume: losses {lc.tolist()} vs {le.tolist()}")
+    return got
+
+
+def captured_eval(dev, knn, scatter):
+    """15(d): one warm 512^2 test frame of phase 8's checkpoint on each
+    route: bit-equal maps, untraced ms in turns, a profiled frame each
+    (busy share, pageable host-to-device copies)."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import run
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.eval import runner
+    from instant_nvr_tpu_torch.tools import profile_eval
+    from instant_nvr_tpu_torch.train import checkpoint
+    root = os.path.join(HERE, "data", "fake_zju_smoke")
+    exp = os.path.join(HERE, "exps", "chip_smoke_patch")
+    cfg = patch_cfg(root, exp, epochs=3, eval_ratio=1.0).replace(eval=True)
+    mspec, rspec, model = run.build(cfg, dev, seed=0)
+    checkpoint.load_weights(cfg.trained_model_dir, model)
+    item = TPoseDataset(cfg, "test").get_item(0)
+    chunk = runner.eval_chunk(cfg)
+    renderers = {route: runner.AutoBudgetRenderer(
+        mspec, rspec, chunk, persist_path=runner.budgets_path(cfg),
+        captured=route == "captured") for route in ("eager", "captured")}
+    reset_counts(knn, scatter)
+    outs = {route: [r(model, item) for _ in range(3)] for route, r in renderers.items()}
+    counts = launch_counts(knn, scatter)
+    if counts["knn_blend"] != renderers["eager"].chunks_rendered \
+            + renderers["captured"].chunks_rendered:
+        raise AssertionError(f"captured eval: launches {counts}")
+    frame = renderers["captured"].render_fn
+    if (frame.captures, frame.replays) != (1, 2):
+        raise AssertionError(f"captured eval: {frame.captures} captures, "
+                             f"{frame.replays} replays")
+    ms = {"eager": [], "captured": []}
+    for _ in range(2):
+        for route, r in renderers.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[route].append(r(model, item))
+            ms[route].append(1000 * (time.perf_counter() - t0))
+    ref = outs["eager"][-1]
+    diffs = {route: [float(np.abs(o["rgb_map"] - ref["rgb_map"]).max()) for o in o_]
+             for route, o_ in outs.items()}
+    equal = {route: [bool(np.array_equal(o["rgb_map"], ref["rgb_map"])
+                          and np.array_equal(o["acc_map"], ref["acc_map"])) for o in o_]
+             for route, o_ in outs.items()}
+    profs = {route: profile_eval.profile_item(r, model, item)
+             for route, r in renderers.items()}
+    phase("captured-eval", card=repr(nvidia_smi()), rays=int(item["ray_o"].shape[0]),
+          chunk=chunk, chunks=runner.padded_chunks(int(item["ray_o"].shape[0]), chunk),
+          warm_ms_eager=[f"{t:.1f}" for t in ms["eager"]],
+          warm_ms_captured=[f"{t:.1f}" for t in ms["captured"]],
+          profiled_ms={k: f"{v['warm_ms']:.1f}" for k, v in profs.items()},
+          device_ms={k: fmt_ms(v["device_ms"]) for k, v in profs.items()},
+          busy={k: ("not measured" if v["busy"] is None else f"{v['busy']:.3f}")
+                for k, v in profs.items()},
+          pageable_host_to_device={k: v["copies"].get("Memcpy HtoD (Pageable -> Device)", 0)
+                                   for k, v in profs.items()},
+          copies={k: v["copies"] for k, v in profs.items()},
+          maps_bit_equal=equal, rgb_max_abs_diff=diffs, captures=frame.captures,
+          peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    if not all(all(v) for v in equal.values()):
+        raise AssertionError(f"captured eval frames differ from eager: {diffs}")
+    return counts
+
+
+def captured_times(cfg, dev, knn, scatter):
+    """15(e): ``bench.measure`` of each route in turns (eager, captured,
+    eager, captured), MSE and patch, untraced; then one traced window a
+    route."""
+    import contextlib
+    import io
+    import tempfile
+    import torch
+    from instant_nvr_tpu_torch import bench, train_net
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.tools import analyze_trace
+    from instant_nvr_tpu_torch.train.compiled import CapturedStep
+    from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
+    from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
+    mspec, rspec, lw = inb.build_model_spec(cfg), make_render_spec(cfg), make_loss_weights(cfg)
+    smi = nvidia_smi()
+    n_steps = (bench.WARMUP_STEPS + bench.CAPTURE_STEPS + bench.TRACE_STEPS
+               + bench.WINDOWS * bench.STEPS_PER_WINDOW)
+    modes = {"mse": (train_net.synthetic_batch(cfg, dev), None),
+             "patch": (train_net.to_tensors(bench.patch_batch_np(cfg), dev),
+                       make_patch_loss_fn(cfg))}
+    for mode, (batch, pfn) in modes.items():
+        n_rays = int(batch["ray_o"].shape[0])
+        for turn, route in enumerate(("eager", "captured", "eager", "captured")):
+            state = bench.new_state(cfg, dev)
+            step = (make_train_step(mspec, rspec, lw, pfn) if route == "eager"
+                    else CapturedStep(mspec, rspec, lw, pfn, n_steps=n_steps))
+            gen = torch.Generator(device=dev)
+            bench.seeded_steps(step, state, batch, gen, bench.WARMUP_STEPS + (
+                bench.CAPTURE_STEPS if route == "captured" else 0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rates = bench.measure(step, state, batch, gen)
+            peak = torch.cuda.max_memory_allocated()
+            busy = ms_dev = None
+            if turn >= 2:
+                with tempfile.TemporaryDirectory() as tmp, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    bench.trace_window(step, state, batch, gen, tmp, mode, [])
+                    summary = analyze_trace.summarize(analyze_trace.find_trace(tmp))
+                busy, ms_dev = summary["busy"], summary["device_ms"]
+            med = rates[len(rates) // 2]
+            phase("captured-times", card=repr(smi), mode=mode, route=route, turn=turn,
+                  rays=n_rays, ms_per_step=f"{1000 * n_rays / med:.2f}",
+                  rays_per_sec=f"{med:.1f}", min=f"{rates[0]:.1f}", max=f"{rates[-1]:.1f}",
+                  peak_mem_GB=f"{peak / 1e9:.3f}",
+                  captures=getattr(step, "captures", 0),
+                  traced_busy=("not traced" if turn < 2 else
+                               "not measured" if busy is None else f"{busy:.3f}"),
+                  traced_device_ms_per_step=(
+                      "not traced" if turn < 2 else "not measured" if ms_dev is None
+                      else f"{ms_dev / bench.TRACE_STEPS:.3f}"))
+            del state, step
+    assert_workspace_zero("captured times")
+
+
+def captured_slice(dev, knn, scatter):
+    """Phase 15: the captured train step and eval frame against the eager
+    ones.  Returns (the launches of its captured runs, each captured
+    graph's launches a replay)."""
+    from instant_nvr_tpu_torch.config import make_cfg
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    cfg = make_cfg(CFG).merged({"ep_iter": CAPTURE_EP_ITER})
+    routes = table_grad_launches(inb.build_model_spec(cfg), make_render_spec(cfg))
+    counts, per_replay = captured_training(cfg, dev, knn, scatter, routes)
+    for got in (captured_resume(dev, knn, scatter), captured_eval(dev, knn, scatter)):
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+    captured_times(make_cfg(CFG), dev, knn, scatter)
+    return counts, per_replay
 
 
 def main() -> int:
@@ -3086,8 +3490,16 @@ def main() -> int:
     counts = {k: counts.get(k, 0) + v for k, v in completion_launches.items()}
 
     # 14. python -m instant_nvr_tpu_torch.bench: both modes, both traces
-    bench_launches, bench_steps = bench_slice(dev, knn, scatter)
-    counts = {k: v + bench_launches.get(k, 0) for k, v in counts.items()}
+    bench_launches, bench_steps, eager_bench = bench_slice(dev, knn, scatter)
+    counts = {k: v + bench_launches.get(k, 0) + eager_bench.get(k, 0)
+              for k, v in counts.items()}
+
+    # 15. the captured train step and eval frame against the eager ones
+    t0 = time.perf_counter()
+    captured_launches, per_replay = captured_slice(dev, knn, scatter)
+    phase("captured-slice", card=repr(nvidia_smi()),
+          seconds=f"{time.perf_counter() - t0:.1f}", launches=repr(captured_launches))
+    counts = {k: v + captured_launches.get(k, 0) for k, v in counts.items()}
 
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
@@ -3169,6 +3581,11 @@ def main() -> int:
         r["completion_launches"] = completion_launches[r["name"]]
         r["bench_launches"] = bench_launches.get(r["name"], 0)
         r["bench_step_launches"] = bench_launches.get(r["name"], 0) // bench_steps
+        # phase 15's, and its graphs' launches a replay (MSE, patch,
+        # fix_random patch)
+        r["captured_launches"] = captured_launches.get(r["name"], 0)
+        r["captured_replay_launches"] = {m: g.get(r["name"], 0)
+                                         for m, g in per_replay.items()}
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,7 @@
 under the protocol and JSON keys of the repo's ``bench.py``.
 
     python -m instant_nvr_tpu_torch.bench [--device cuda] \
-        [--cfg_file configs/inb/inb_377.yaml] [--tiny]
+        [--cfg_file configs/inb/inb_377.yaml] [--tiny] [--eager]
 
 Two modes, ``BENCH_MODE=mse|patch|both`` (default both):
   - ``mse``: the ``N_rand`` (1,024) ray MSE step on the fixed synthetic
@@ -13,7 +13,12 @@ Two modes, ``BENCH_MODE=mse|patch|both`` (default both):
     through ``train/loop.py:make_patch_loss_fn`` (LPIPS at inb_377's
     widths), from the same seed-0 weights, rebuilt after the MSE state is
     freed.
-Each mode takes ``WARMUP_STEPS`` steps, then, when ``BENCH_TRACE`` (the
+The step takes ``train/compiled.py:step_route``'s route: on the card the
+captured step (``CapturedStep``: the step replayed as a CUDA graph, as the
+root ``bench.py`` times a jitted step), ``--eager`` the eager one.  Each
+mode takes ``WARMUP_STEPS`` steps (on the captured route the graph's eager
+warm-up, and ``CAPTURE_STEPS`` more: its capture and first replay, as
+``bench.py``'s warm-up holds the jit's compile), then, when ``BENCH_TRACE`` (the
 MSE mode) or ``BENCH_TRACE_PATCH`` (the patch mode) names a directory, a
 ``TRACE_STEPS``-step ``torch.profiler`` window exported there as a Chrome
 trace (``python -m instant_nvr_tpu_torch.tools.analyze_trace <dir>`` reads
@@ -30,7 +35,9 @@ gradient's kernel as ``train/step.py:table_grad_launches`` routes it.  The
 last line is one JSON object with ``bench.py``'s keys (under
 ``BENCH_MODE=patch`` the patch rate is the primary metric,
 ``train_patch_rays_per_sec``) plus ``device`` (the card's name, or
-``"cpu"``) and ``power_limit`` (from ``nvidia-smi``; null on the CPU).
+``"cpu"``), ``power_limit`` (from ``nvidia-smi``; null on the CPU),
+``route`` (``captured`` or ``eager``) and ``captures`` (the graphs the
+modes captured).
 
 The device defaults to ``cuda`` and a missing card is an error;
 ``--device cpu --tiny`` runs the plain versions at the CPU tests' widths,
@@ -45,7 +52,7 @@ import json
 import os
 import subprocess
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +62,7 @@ from .config import make_cfg
 from .models import inb
 from .ops import knn, scatter
 from .renderer.inb_renderer import RenderSpec, make_render_spec
+from .train.compiled import CapturedStep, step_route
 from .train.loop import make_patch_loss_fn
 from .train.state import TrainState, create_train_state
 from .train.step import (LossWeights, make_loss_weights, make_train_step,
@@ -62,6 +70,7 @@ from .train.step import (LossWeights, make_loss_weights, make_train_step,
 
 BASELINE_RAYS_PER_SEC = 10240.0      # bench.py:21 (BASELINE.md)
 WARMUP_STEPS = 3
+CAPTURE_STEPS = 1                    # the captured route's capture, after the warm-up
 TRACE_STEPS = 5
 WINDOWS = 5
 STEPS_PER_WINDOW = 20
@@ -116,12 +125,14 @@ def seeded_steps(step, state: TrainState, batch: Dict[str, torch.Tensor],
                  gen: torch.Generator, n: int,
                  losses: Optional[List[torch.Tensor]] = None) -> None:
     """``n`` steps; step ``i`` draws from ``gen`` reseeded with ``i % 8`` (a
-    host call: nothing waits for the device).  Appends each loss."""
+    host call: nothing waits for the device).  Appends a copy of each loss
+    (a captured step's is its graph's output, which the next replay
+    overwrites)."""
     for i in range(n):
         gen.manual_seed(i % N_SEEDS)
         _, stats = step(state, batch, generator=gen)
         if losses is not None:
-            losses.append(stats["loss"])
+            losses.append(stats["loss"].clone())
 
 
 def measure(step, state: TrainState, batch: Dict[str, torch.Tensor],
@@ -173,7 +184,8 @@ def launch_counts() -> Dict[str, int]:
 
 def check_launches(launches: Dict[str, int], routes, steps: int) -> None:
     """Raise unless ``launches`` are one ``knn_blend`` a step and each
-    table-gradient route's per-step count times ``steps``."""
+    table-gradient route's per-step count times ``steps`` (a captured
+    step's replays count the launches its graph holds)."""
     want = {k: steps * routes.get(k, 0) for k in launches}
     want["knn_blend"] = steps
     if launches != want:
@@ -182,22 +194,28 @@ def check_launches(launches: Dict[str, int], routes, steps: int) -> None:
 
 
 def run_mode(name: str, fl: Flagship, batch: Dict[str, torch.Tensor],
-             patch_loss_fn, trace_dir: str) -> List[float]:
+             patch_loss_fn, trace_dir: str, eager: bool = False
+             ) -> Tuple[List[float], int]:
     """Warm-up, the optional trace window and :func:`measure` for one mode,
-    on a fresh seed-0 state that is freed on return; returns the sorted
-    window rates."""
+    on a fresh seed-0 state that is freed on return, on ``step_route``'s
+    route; returns the sorted window rates and the graphs captured."""
     device = batch["ray_o"].device
     cuda = device.type == "cuda"
     routes = table_grad_launches(fl.mspec, fl.rspec)
     state = new_state(fl.cfg, device)
-    step = make_train_step(fl.mspec, fl.rspec, fl.lw, patch_loss_fn)
+    route = step_route(fl.cfg, device, eager)
+    warmup = WARMUP_STEPS + (CAPTURE_STEPS if route.name == "captured" else 0)
+    n_steps = warmup + TRACE_STEPS + WINDOWS * STEPS_PER_WINDOW
+    step = (CapturedStep(fl.mspec, fl.rspec, fl.lw, patch_loss_fn, n_steps=n_steps)
+            if route.name == "captured"
+            else make_train_step(fl.mspec, fl.rspec, fl.lw, patch_loss_fn))
     gen = torch.Generator(device=device)
     if cuda:
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
     before = launch_counts()
     losses: List[torch.Tensor] = []
-    seeded_steps(step, state, batch, gen, WARMUP_STEPS, losses)
+    seeded_steps(step, state, batch, gen, warmup, losses)
     synchronize(device)
     trace = (trace_window(step, state, batch, gen, trace_dir, name, losses)
              if trace_dir else None)
@@ -217,9 +235,10 @@ def run_mode(name: str, fl: Flagship, batch: Dict[str, torch.Tensor],
           f"rays_per_sec={median:.1f} min={rates[0]:.1f} max={rates[-1]:.1f} "
           f"peak_mem_GB={'not measured' if peak is None else f'{peak / 1e9:.3f}'} "
           f"routes_per_step={dict(routes)} launches={launches} "
-          f"loss_first={loss[0]:.5f} loss_last={loss[-1]:.5f} trace={trace}",
+          f"loss_first={loss[0]:.5f} loss_last={loss[-1]:.5f} trace={trace} "
+          f"route={route.name!r} captures={getattr(step, 'captures', 0)}",
           flush=True)
-    return rates
+    return rates, getattr(step, "captures", 0)
 
 
 def card_line(device: torch.device) -> Optional[str]:
@@ -247,6 +266,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--tiny", action="store_true",
                    help="the CPU tests' widths (with --device cpu)")
+    p.add_argument("--eager", action="store_true",
+                   help="time the eager step, not the captured one")
     return p.parse_args(argv)
 
 
@@ -258,15 +279,18 @@ def main(argv=None) -> dict:
         raise ValueError(f"BENCH_MODE={mode!r}: one of {MODES}")
     device = run.resolve_device(args.device)
     fl = flagship(args.cfg_file, device, args.tiny)
-    out = {}
+    out, captures = {}, 0
     if mode in ("both", "mse"):
-        rates = run_mode("mse", fl, fl.batch, None, os.environ.get("BENCH_TRACE", ""))
+        rates, n = run_mode("mse", fl, fl.batch, None,
+                            os.environ.get("BENCH_TRACE", ""), args.eager)
+        captures += n
         out.update(_rate_keys("train_rays_per_sec", rates))
         gc.collect()                     # the MSE state, before the patch one
     if mode in ("both", "patch"):
         pbatch = train_net.to_tensors(patch_batch_np(fl.cfg), device)
-        rates = run_mode("patch", fl, pbatch, make_patch_loss_fn(fl.cfg),
-                         os.environ.get("BENCH_TRACE_PATCH", ""))
+        rates, n = run_mode("patch", fl, pbatch, make_patch_loss_fn(fl.cfg),
+                            os.environ.get("BENCH_TRACE_PATCH", ""), args.eager)
+        captures += n
         if mode == "patch":              # the patch rate is the primary metric
             out.update(_rate_keys("train_patch_rays_per_sec", rates))
         else:
@@ -279,6 +303,8 @@ def main(argv=None) -> dict:
         print(card)
     out["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     out["power_limit"] = card.split(",")[-1].strip() if card else None
+    out["route"] = step_route(fl.cfg, device, args.eager).name
+    out["captures"] = captures
     print(json.dumps(out), flush=True)
     return out
 

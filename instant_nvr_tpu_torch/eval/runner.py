@@ -3,9 +3,12 @@ of ``instant_nvr_tpu/eval/runner.py``).
 
 The JAX version maps the chunks inside one jit; here a Python loop renders
 them one after another on the device and gathers the telemetry on the
-device, so a frame waits for the device once, at the end.  Padding is the
-JAX version's as it is (a power-of-two chunk count, padded by wrapping the
-real rays), so the worst-chunk telemetry, and with it the budgets, match.
+device, so a frame waits for the device once, at the end.  On a CUDA
+device the frame is captured as one CUDA graph (:class:`CapturedFrame`,
+the counterpart of that jit) and replayed; ``eager`` keeps the Python
+loop.  Padding is the JAX version's as it is (a power-of-two chunk count,
+padded by wrapping the real rays), so the worst-chunk telemetry, and with
+it the budgets, match.
 Across ranks (``parallel/mesh.py``) each rank renders a contiguous shard
 of the items, raises budgets into its own ``eval_budgets.json.rank<r>``,
 and rank 0 writes the metrics of every item (:func:`_allgather_metrics`).
@@ -26,6 +29,7 @@ from ..datasets.tpose_dataset import TPoseDataset
 from ..models import inb
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import TELEMETRY_KEYS, RenderSpec, render_rays
+from ..train import compiled
 from .evaluator import Evaluator
 
 RAY_KEYS = ("ray_o", "ray_d", "near", "far")
@@ -49,6 +53,9 @@ def make_chunked_renderer(mspec: inb.ModelSpec, rspec: RenderSpec,
     @torch.no_grad()
     def render_image(model: inb.InbModel, rays: Dict[str, torch.Tensor],
                      meta: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        device = next(model.parameters()).device
+        rays = {k: v.to(device) for k, v in rays.items()}
+        meta = {k: v.to(device) for k, v in meta.items()}
         n = rays["ray_o"].shape[0]
         outs = []
         for s in range(0, n, chunk):
@@ -65,26 +72,74 @@ def make_chunked_renderer(mspec: inb.ModelSpec, rspec: RenderSpec,
     return render_image
 
 
+class CapturedFrame:
+    """:func:`make_chunked_renderer`'s ``render_image`` as CUDA graphs,
+    one per static key: the padded ray count (the power-of-two buckets of
+    :func:`padded_chunks`) and the meta's keys, shapes and dtypes (the
+    budgets are this renderer's; a raise makes a new renderer, as the JAX
+    package recompiles).  The rays and meta are copied into static buffers
+    (host arrays straight from the host), the first frame of a key renders
+    eagerly on a side stream (the warm-up: kernels, constants, handles),
+    the second captures every chunk and the worst-chunk telemetry into one
+    graph, and each later one replays it.  The outputs are the graph's
+    static tensors: read them before the next frame.  Refuses a model off
+    the card."""
+
+    def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, chunk: int):
+        self.render_image = make_chunked_renderer(mspec, rspec, chunk)
+        self.graphs: Dict[tuple, compiled.Graph] = {}
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, model: inb.InbModel, rays: Dict[str, torch.Tensor],
+                 meta: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        device = next(model.parameters()).device
+        if device.type != "cuda":
+            raise RuntimeError(f"a captured frame renders on a CUDA device, not "
+                               f"{device}; eager=True renders on the CPU")
+        inputs = {"rays": rays, "meta": meta}
+        # the model is a static input too: its parameters' addresses
+        key = (id(model), compiled.signature(rays), compiled.signature(meta))
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = compiled.Graph(inputs, device)
+            g.model = model             # keeps id(model) this model's
+        g.fill(inputs)
+
+        def run():
+            return self.render_image(model, g.inputs["rays"], g.inputs["meta"])
+
+        if not g.warm:
+            g.warm = 1
+            return compiled.on_side_stream(run, compiled.side_stream(device), device)
+        if g.graph is None:
+            g.graph, g.out, g.launches = compiled.capture(run, compiled.side_stream(device))
+            self.captures += 1
+        compiled.replay(g.graph, g.launches)
+        self.replays += 1
+        return g.out
+
+
 def padded_chunks(n: int, chunk: int) -> int:
     """Chunks a render of ``n`` rays takes: the chunk count rounded up to a
     power of two (the JAX runner's bucketing)."""
     return 1 << (max(1, -(-n // chunk)) - 1).bit_length()
 
 
-def _to_device(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x), device=device)
+def _host(x) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, order="C"))
 
 
 def render_full_image(render_fn, model: inb.InbModel,
                       item: Dict[str, np.ndarray], meta_keys,
                       chunk: int) -> Dict[str, np.ndarray]:
     """Pad host rays to a power-of-two chunk count (wrapping the real rays),
-    render on the model's device, unpad; returns numpy arrays."""
-    device = next(model.parameters()).device
+    render on the model's device (``render_fn`` copies the host tensors
+    there), unpad; returns numpy arrays."""
     n = item["ray_o"].shape[0]
     idx = np.arange(padded_chunks(n, chunk) * chunk) % n
-    rays = {k: _to_device(np.asarray(item[k])[idx], device) for k in RAY_KEYS}
-    meta = {k: _to_device(item[k], device) for k in meta_keys if k in item}
+    rays = {k: _host(np.asarray(item[k])[idx]) for k in RAY_KEYS}
+    meta = {k: _host(np.asarray(item[k])) for k in meta_keys if k in item}
     out = render_fn(model, rays, meta)
     return {k: v.cpu().numpy()[:n] if k in MAP_KEYS else v.cpu().numpy()
             for k, v in out.items()}
@@ -131,10 +186,15 @@ class AutoBudgetRenderer:
     in the model directory, the JAX package's keys; ``.rank<r>`` appended
     on rank r > 0) and merged back, with any ``persist_path*`` sidecar,
     when a later renderer starts, so an eval pays a raise once.
+
+    ``captured`` renders through a :class:`CapturedFrame` (a new one for
+    each raise of the budgets), else through the eager
+    :func:`make_chunked_renderer`.
     """
 
     def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, chunk: int,
-                 max_raises: int = 4, persist_path: Optional[str] = None):
+                 max_raises: int = 4, persist_path: Optional[str] = None,
+                 captured: bool = False):
         self.persist_path = persist_path
         if persist_path:
             for path in sorted(glob.glob(persist_path + "*")):
@@ -150,7 +210,13 @@ class AutoBudgetRenderer:
         self.chunk = chunk
         self.max_raises = max_raises
         self.chunks_rendered = 0
-        self.render_fn = make_chunked_renderer(mspec, rspec, chunk)
+        self.captured = captured
+        self.render_fn = self._renderer()
+
+    def _renderer(self):
+        if self.captured:
+            return CapturedFrame(self.mspec, self.rspec, self.chunk)
+        return make_chunked_renderer(self.mspec, self.rspec, self.chunk)
 
     def _save(self) -> None:
         if not self.persist_path:
@@ -182,8 +248,7 @@ class AutoBudgetRenderer:
                   f"part {float(out['part_overflow']):.4f}) -> raised to "
                   f"cull_frac={self.mspec.cull_frac:.3f} "
                   f"part_frac={self.mspec.part_frac:.3f}; re-rendering")
-            self.render_fn = make_chunked_renderer(self.mspec, self.rspec,
-                                                   self.chunk)
+            self.render_fn = self._renderer()
             out = self._render(model, item)
         if out["cull_overflow"] > 0 or out["part_overflow"] > 0:
             print(f"eval WARNING: overflow persists after {self.max_raises} "
@@ -196,10 +261,22 @@ def budgets_path(cfg) -> str:
     return os.path.join(cfg.trained_model_dir, "eval_budgets.json")
 
 
+def frame_route(device, eager: bool = False) -> compiled.Route:
+    """The eval frame's route: ``captured`` (:class:`CapturedFrame`) on a
+    CUDA device unless ``eager``; ``eager`` with its reason otherwise."""
+    if eager:
+        return compiled.Route("eager", "--eager")
+    if torch.device(device).type != "cuda":
+        return compiled.Route("eager", f"CUDA graphs need a CUDA device, not "
+                                       f"{torch.device(device).type}")
+    return compiled.Route("captured")
+
+
 def evaluate_dataset(cfg, mspec: inb.ModelSpec, rspec: RenderSpec,
                      model: inb.InbModel, split: str = "test", epoch: int = -1,
                      max_items: Optional[int] = None,
-                     save_images: bool = True) -> Dict[str, float]:
+                     save_images: bool = True,
+                     eager: bool = False) -> Dict[str, float]:
     """Render every item of ``split`` (one view set every
     ``frame_sampler_interval`` frames, at most ``max_items``) on the
     model's device, score it and summarize.  Returns the mean metrics (the
@@ -215,15 +292,20 @@ def evaluate_dataset(cfg, mspec: inb.ModelSpec, rspec: RenderSpec,
         indices = indices[:max_items]
     n_total = len(indices)
     indices = shard_indices(indices, pmesh.rank(), pmesh.world_size(), pad=False)
+    device = next(model.parameters()).device
+    route = frame_route(device, eager)
     renderer = AutoBudgetRenderer(mspec, rspec, eval_chunk(cfg),
-                                  persist_path=budgets_path(cfg))
+                                  persist_path=budgets_path(cfg),
+                                  captured=route.name == "captured")
+    if device.type == "cuda":
+        print(f"eval frame route: {route}", flush=True)
     evaluator = Evaluator(result_dir=cfg.result_dir,
                           lpips_weights=cfg.get("lpips_weights", ""),
                           save_images=save_images,
                           eval_part=cfg.get("eval_part", ""),
                           partnames=list(mspec.partnames),
                           test_full=cfg.get("test_full", True),
-                          device=next(model.parameters()).device)
+                          device=device)
     timings = []
     for idx in indices:
         t0 = time.time()

@@ -20,7 +20,8 @@ from ..datasets.image_ops import read_png, write_png
 from ..datasets.tpose_dataset import TPoseDataset
 from ..ops.ray import get_near_far_np, get_rays_np
 from ..renderer.inb_renderer import make_render_spec
-from .runner import META_KEYS, AutoBudgetRenderer, budgets_path, eval_chunk
+from .runner import (META_KEYS, AutoBudgetRenderer, budgets_path, eval_chunk,
+                     frame_route)
 from .video import write_mp4
 
 # frames per second of the bullet-time video
@@ -74,12 +75,13 @@ def gen_path_from_cams(Rs: np.ndarray, Ts: np.ndarray, center: np.ndarray,
     return cams
 
 
-def render_novel_views(cfg, mspec, model) -> List[str]:
+def render_novel_views(cfg, mspec, model, eager: bool = False) -> List[str]:
     """Bullet-time demo on the model's device: ``render_views`` cameras on
     an orbit; the body animates across the test frames (``render_frame ==
     -1``, the default: frame ``view % frames``) or stays at frame
     ``render_frame``.  Writes ``result_dir/novel_views/frame_%04d.png`` and
-    tries the mp4; returns the frame paths."""
+    tries the mp4; returns the frame paths.  Each view renders on
+    ``frame_route``'s route (``eager`` forces the eager one)."""
     ds = TPoseDataset(cfg, "test")
     n_frames = max(len(ds) // ds.num_cams, 1)
     render_frame = int(cfg.get("render_frame", -1))
@@ -106,8 +108,10 @@ def render_novel_views(cfg, mspec, model) -> List[str]:
     center = np.asarray(item0["wbounds"]).mean(0)
     cams = gen_path_from_cams(Rs, Ts, center, n_views)
 
+    route = frame_route(next(model.parameters()).device, eager)
     renderer = AutoBudgetRenderer(mspec, make_render_spec(cfg), eval_chunk(cfg),
-                                  persist_path=budgets_path(cfg))
+                                  persist_path=budgets_path(cfg),
+                                  captured=route.name == "captured")
     out_dir = os.path.join(cfg.result_dir, "novel_views")
     os.makedirs(out_dir, exist_ok=True)
     frames = []

@@ -10,12 +10,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..ops.grid_sample import pts_sample_volume
 from ..ops.hashgrid import (HashGridSpec, HashTables, hashgrid_encode,
                             make_hashgrid_spec)
+from ..utils.constants import device_constant
 from .nn import make_mlp, mlp_apply
 
 
@@ -55,10 +57,15 @@ def deformer_apply(spec: DeformerSpec, params: Deformer, pts: torch.Tensor,
     kernels unless the spec sets ``exact_grads`` (ops/hashgrid.py).
     """
     uv = pts_sample_volume(pts, tuv, tbounds, sizes=tuv_sizes)      # (N, 2)
-    t = torch.as_tensor(frame_t, dtype=uv.dtype, device=uv.device)
+    if torch.is_tensor(frame_t):
+        t = frame_t.to(device=uv.device, dtype=uv.dtype)
+    else:   # a host value: one device constant per value
+        t = device_constant(("frame_t", float(frame_t), uv.dtype), uv.device,
+                            lambda: np.float64(frame_t), uv.dtype)
     uvt = torch.cat([uv, t.reshape(1, 1).expand(uv.shape[0], 1)], dim=-1)
-    unit = torch.tensor([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]], dtype=uv.dtype,
-                        device=uv.device)
+    unit = device_constant(("unit_box", uv.dtype), uv.device,
+                           lambda: np.array([[0.0, 0.0, 0.0], [1.0, 1.0, 1.0]]),
+                           uv.dtype)
     feat = hashgrid_encode(spec.embed, params.embed.tables(), uvt, unit)
     resd = spec.scale * torch.tanh(mlp_apply(params.mlp, feat, compute_dtype))
     resd = resd.to(pts.dtype)

@@ -36,6 +36,7 @@ from ..ops.knn import knn_blend
 from ..ops.select import (_fixed_perm, compact, partition_select, scatter_back,
                           topk_select)
 from ..parallel import mesh as pmesh
+from ..utils.constants import arange, device_constant
 from .deformer import Deformer, DeformerSpec, deformer_apply, make_deformer_spec
 from .embedders import freq_encode, freq_out_dim
 from .nn import kaiming_normal_, make_mlp, mlp_apply, mlp_apply_stacked
@@ -315,23 +316,26 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     #    of _fixed_perm(K), its count clipped to Kp
     Kmax = max(Kps)
     offs = np.cumsum((0,) + Kps)
-    kp_arr = torch.tensor(Kps, device=dev)
+    kp_arr = device_constant(("part_budgets", Kps), dev, lambda: np.asarray(Kps),
+                             torch.int64)
+    slots = arange(Kmax, dev)[None, :]
     score = torch.where(pflag, part_dist,
                         torch.full_like(part_dist, float("inf"))).T   # (P, K)
     if partition:
         idx_b, count = compact(pflag.T, _fixed_perm(K, dev), kp_arr, Kmax)
-        valid_pad = torch.arange(Kmax, device=dev)[None, :] < count[:, None]
+        valid_pad = slots < count[:, None]
         valid_b = valid_pad
         best = torch.where(valid_b, torch.gather(score, 1, idx_b),
                            torch.full_like(idx_b, float("inf"), dtype=score.dtype))
     else:
         best, idx_b = torch.topk(score, Kmax, dim=1, largest=False)   # (P, Kmax)
         valid_b = best < spec.smpl_thresh
-        valid_pad = valid_b & (torch.arange(Kmax, device=dev)[None, :] < kp_arr[:, None])
+        valid_pad = valid_b & (slots < kp_arr[:, None])
 
     all_idx = torch.cat([idx_b[p, :Kps[p]] for p in range(P)])        # (M,)
     all_valid = torch.cat([valid_b[p, :Kps[p]] for p in range(P)])
-    pid = torch.as_tensor(np.repeat(np.arange(P), Kps), device=dev)
+    pid = device_constant(("part_ids", Kps), dev,
+                          lambda: np.repeat(np.arange(P), Kps), torch.int64)
     sel_pts = cpts[all_idx]
     sel_dirs = cdirs[all_idx]
     sel_bw = pred_pbw.reshape(K * P, lbs.NUM_BONES)[all_idx * P + pid]
@@ -380,13 +384,14 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     feature = hidden[..., 1:]
 
     dir_pad = pad_parts(freq_encode(all_dirs, spec.viewdir_res))
-    latent = model.latent[:, batch["latent_index"], :]    # (P, D)
+    latent = _latent_codes(model, batch["latent_index"])  # (P, D)
     latent = latent[:, None, :].expand(P, Kmax, spec.latent_dim)
     rgb_in = torch.cat([emb_pad, dir_pad, feature, latent], dim=-1)
 
     rgb_v = torch.zeros((P, Kmax, 3), dtype=torch.float32, device=dev)
     for (dh_g, nl_g), ids in spec.rgb_groups():
-        sel = torch.tensor(ids, device=dev)
+        sel = device_constant(("rgb_group", ids), dev, lambda: np.asarray(ids),
+                              torch.int64)
         out = torch.sigmoid(mlp_apply_stacked(model.rgb[f"h{dh_g}_l{nl_g}"],
                                               rgb_in[sel], cd))
         rgb_v[sel] = out.float()
@@ -395,7 +400,7 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     # 9. one flat scatter back to the (K, P) per-part slots; invalid slots
     #    go to a spare row K*P that is cut off afterwards
     flat_idx = torch.where(valid_pad,
-                           idx_b * P + torch.arange(P, device=dev)[:, None],
+                           idx_b * P + arange(P, dev)[:, None],
                            torch.full_like(idx_b, K * P))
     raws = torch.zeros((K * P + 1, 4), dtype=torch.float32, device=dev)
     raws[flat_idx.reshape(-1)] = torch.where(
@@ -437,8 +442,10 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
     }
     if train:
         # the (M, 1) occupancies: a constant-index gather from (P, Kmax)
-        tocc_idx = torch.as_tensor(np.concatenate(
-            [p * Kmax + np.arange(Kps[p]) for p in range(P)]), device=dev)
+        tocc_idx = device_constant(
+            ("tocc_idx", Kps), dev,
+            lambda: np.concatenate([p * Kmax + np.arange(Kps[p]) for p in range(P)]),
+            torch.int64)
         ret.update({
             "resd": all_resd,
             "tpts": init_bigpose,
@@ -454,6 +461,15 @@ def forward(spec: ModelSpec, model: InbModel, wpts: torch.Tensor,
                                           sel_total]),
         })
     return ret
+
+
+def _latent_codes(model: InbModel, index) -> torch.Tensor:
+    """(P, D): every part's latent code of frame ``index``.  A tensor index
+    is gathered on the device (indexing with a 0-d tensor would read it on
+    the host, a wait that a CUDA graph cannot capture)."""
+    if torch.is_tensor(index):
+        return model.latent.index_select(1, index.reshape(1))[:, 0]
+    return model.latent[:, index, :]
 
 
 def _expert(layers, i: int) -> List[SimpleNamespace]:

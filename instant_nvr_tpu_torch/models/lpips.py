@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.constants import device_constant
+
 # VGG16/VGG19 conv plans: (out_channels, n_convs per stage)
 _VGG16_PLAN = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
 _VGG19_PLAN = [(64, 2), (128, 2), (256, 4), (512, 4), (512, 4)]
@@ -143,8 +145,10 @@ def lpips_distance(img_pred: torch.Tensor, img_gt: torch.Tensor,
     dev = img_pred.device
     params = _eval_vgg_params(weights_path, dev)
     lin = _eval_lin_weights(weights_path, dev)
-    shift = torch.tensor(_SHIFT, device=dev)
-    scale = torch.tensor(_SCALE, device=dev)
+    shift = device_constant("lpips_shift", dev, lambda: np.asarray(_SHIFT),
+                            torch.float32)
+    scale = device_constant("lpips_scale", dev, lambda: np.asarray(_SCALE),
+                            torch.float32)
     prep = lambda im: _nchw((im * 2.0 - 1.0 - shift) / scale)
     fp = vgg_features(params, prep(img_pred))
     fg = vgg_features(params, prep(img_gt))

@@ -6,7 +6,10 @@ clamp, align_corners=True.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..utils.constants import device_constant
 
 
 def grid_sample_3d(vol: torch.Tensor, coords: torch.Tensor,
@@ -14,7 +17,8 @@ def grid_sample_3d(vol: torch.Tensor, coords: torch.Tensor,
     """vol (X, Y, Z, C); coords (N, 3) in [-1, 1]; sizes (3,) int -> (N, C)."""
     X, Y, Z = vol.shape[:3]
     if sizes is None:
-        sizes = torch.tensor([X, Y, Z], dtype=torch.int32, device=vol.device)
+        sizes = device_constant(("volume_sizes", X, Y, Z), vol.device,
+                                lambda: np.array([X, Y, Z]), torch.int32)
     sizes = sizes.to(device=vol.device, dtype=torch.int32)
     # align_corners=True: -1 -> 0, +1 -> size-1
     pix = (coords + 1.0) * 0.5 * (sizes.to(coords.dtype) - 1.0)   # (N, 3)

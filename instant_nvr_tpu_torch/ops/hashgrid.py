@@ -53,6 +53,7 @@ import torch
 from sympy import nextprime
 from torch import nn
 
+from ..utils.constants import device_constant
 from . import scatter
 
 _U32 = 0xFFFFFFFF
@@ -206,7 +207,7 @@ def _corners(x01: torch.Tensor, res: torch.Tensor):
     x01 (N, 3) normalized points; res (L, 1) or (L, N) int32 entries per
     side.  Returns idx3: three (L, 8, N) int64 index arrays and w (L, 8, N).
     """
-    cbits = torch.as_tensor(_corner_bits(), device=x01.device)
+    cbits = device_constant("corner_bits", x01.device, _corner_bits, torch.int64)
     res_f = res.to(x01.dtype)
     nmax = res.long()
     idx3, w = [], None
@@ -363,6 +364,20 @@ def _level_block(table: torch.Tensor, ind: torch.Tensor, ws: torch.Tensor,
     return torch.sum(ws[..., None] * v, dim=1).movedim(-1, 1)  # (n_lev, F, N)
 
 
+def _dense_offsets(spec: HashGridSpec, device) -> torch.Tensor:
+    """(S, 1, 1) int64: each dense level's first row."""
+    return device_constant(("dense_offsets", spec.dense_offsets), device,
+                           lambda: np.asarray(spec.dense_offsets)[:, None, None],
+                           torch.int64)
+
+
+def _hash_offsets(spec: HashGridSpec, device) -> torch.Tensor:
+    """(H, 1, 1) int64: each hashed level's first row."""
+    H, T = spec.n_hash_levels, spec.table_size
+    return device_constant(("hash_offsets", H, T), device,
+                           lambda: (np.arange(H) * T)[:, None, None], torch.int64)
+
+
 def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
                     bounds: torch.Tensor) -> torch.Tensor:
     """Encode points.  xyz (N, 3); bounds (2, 3) -> (N, out_dim)."""
@@ -370,8 +385,10 @@ def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
     L, F = spec.n_levels, spec.n_features
     S, H = spec.start_hash, spec.n_hash_levels
     x01 = (xyz - bounds[0]) / (bounds[1] - bounds[0])
-    res = torch.tensor(spec.entries_num, dtype=torch.int32,
-                       device=xyz.device)[:, None]              # (L, 1)
+    dev = xyz.device
+    res = device_constant(("entries_num", spec.entries_num), dev,
+                          lambda: np.asarray(spec.entries_num)[:, None],
+                          torch.int32)                          # (L, 1)
     idx3, w = _corners(x01, res)
 
     vals = []
@@ -379,13 +396,11 @@ def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
         if name == "dense":
             nd = res[:S].long()[:, :, None]                     # (S, 1, 1)
             ind = (idx3[0][:S] * (nd * nd) + idx3[1][:S] * nd + idx3[2][:S])
-            ind = ind + torch.tensor(spec.dense_offsets,
-                                     device=xyz.device)[:, None, None]
+            ind = ind + _dense_offsets(spec, dev)
             ws = w[:S]
         else:
             ind = _hash_index([i[S:] for i in idx3], spec.primes, spec.table_size)
-            ind = ind + (torch.arange(H, device=xyz.device)
-                         * spec.table_size)[:, None, None]
+            ind = ind + _hash_offsets(spec, dev)
             ws = w[S:]
         vals.append(_level_block(params[name], ind, ws, spec, level_offsets))
     val = torch.cat(vals, dim=0).to(x01.dtype)                  # (L, F', N)
@@ -426,12 +441,16 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
         raise ValueError(f"pts has {pts.shape[0]} rows, seg_sizes sum to {M}")
     dev = pts.device
     offs = np.cumsum([0] + list(seg_sizes))
-    pid = torch.as_tensor(np.repeat(np.arange(P), seg_sizes), device=dev)
+    seg = tuple(int(n) for n in seg_sizes)
+    pid = device_constant(("part_ids", seg), dev,
+                          lambda: np.repeat(np.arange(P), seg), torch.int64)
     b = bounds[pid]                                             # (M, 2, 3)
     x01 = (pts - b[:, 0]) / (b[:, 1] - b[:, 0])
-    e_np = np.asarray([s.entries_num for s in specs], np.int32)[
-        np.repeat(np.arange(P), seg_sizes)].T                   # (L, M)
-    res = torch.as_tensor(e_np, device=dev)
+    entries = tuple(s.entries_num for s in specs)
+    res = device_constant(
+        ("part_entries_num", entries, seg), dev,
+        lambda: np.asarray(entries, np.int32)[np.repeat(np.arange(P), seg)].T,
+        torch.int32)                                            # (L, M)
     idx3, w = _corners(x01, res)
 
     n_lm = res.long()[:, None, :]                               # (L, 1, M)
@@ -451,14 +470,12 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
         blocks = []
         for name, _, level_offsets in s.tables():
             if name == "dense":
-                ind = ind_dense[:S, :, o:e] + torch.tensor(
-                    s.dense_offsets, device=dev)[:, None, None]
+                ind = ind_dense[:S, :, o:e] + _dense_offsets(s, dev)
                 ws = w[:S, :, o:e]
             else:
                 ind = _hash_index([i[S:, :, o:e] for i in idx3], s.primes,
                                   s.table_size)
-                ind = ind + (torch.arange(H, device=dev)
-                             * s.table_size)[:, None, None]
+                ind = ind + _hash_offsets(s, dev)
                 ws = w[S:, :, o:e]
             blocks.append(block_feat(s, params_list[p][name], ind, ws,
                                      level_offsets))

@@ -5,9 +5,33 @@ from __future__ import annotations
 import torch
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` of a tensor with no zero entry along ``dim``.  Its
+    backward is torch's for that case, ``reversed_cumsum(out * grad) /
+    input``, the same ops in the same order, without torch's test for a zero
+    entry: that test reads a flag on the host, a wait that a CUDA graph
+    cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        out = torch.cumprod(x, dim=dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        if x.numel() <= 1 or x.shape[ctx.dim] == 1:
+            return grad, None
+        w = out * grad
+        return w.flip(ctx.dim).cumsum(ctx.dim).flip(ctx.dim).div(x), None
+
+
 def render_weights(alpha: torch.Tensor, epsilon: float = 1e-10) -> torch.Tensor:
-    """alpha (..., R, S) -> weights a_i * prod_{j<i} (1 - a_j + eps)."""
-    trans = torch.cumprod(1.0 - alpha + epsilon, dim=-1)
+    """alpha (..., R, S) -> weights a_i * prod_{j<i} (1 - a_j + eps).  With
+    alpha in [0, 1] every factor is at least eps > 0."""
+    trans = _PositiveCumprod.apply(1.0 - alpha + epsilon, -1)
     trans = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], dim=-1)
     return alpha * trans
 

@@ -226,14 +226,34 @@ def _stream(t: torch.Tensor) -> int:
 _workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
+def _refuse_under_capture(what: str, device: torch.device) -> None:
+    """A workspace made inside a CUDA graph capture would come from the
+    graph's pool and be zeroed by a node of the graph: the eager warm-up on
+    the capturing stream must size it first."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} would be allocated under CUDA graph capture; "
+                           f"warm up on the capturing stream first")
+
+
+# workspaces a larger one replaced: a CUDA graph captured with one holds its
+# address, so none is ever freed
+_retired = []
+
+
 def workspace(device: torch.device, n: int, stream: int = 0) -> torch.Tensor:
     """The float32 workspace of (device, stream), at least ``n`` floats.
     Allocated with ``torch.zeros`` at first use and replaced by a larger
-    zeroed one only when a call needs more; it never shrinks.  The kernels
-    leave it all zero when their work ends."""
+    zeroed one only when a call needs more; it never shrinks, and one it
+    replaces is kept.  The kernels leave it all zero when their work ends,
+    and so does every replay of a CUDA graph that captured them.  A capture
+    finds the workspace its warm-up made on the same stream, and raises if
+    it would need a new one."""
     key = (torch.device(device), stream)
     ws = _workspaces.get(key)
     if ws is None or ws.numel() < n:
+        _refuse_under_capture("the scatter workspace", key[0])
+        if ws is not None:
+            _retired.append(ws)
         ws = torch.zeros(n, dtype=torch.float32, device=device)
         _workspaces[key] = ws
     return ws
@@ -242,7 +262,7 @@ def workspace(device: torch.device, n: int, stream: int = 0) -> torch.Tensor:
 def workspace_nonzero() -> int:
     """Nonzero words over every workspace (0 between calls); synchronises."""
     return sum(int(torch.count_nonzero(ws.view(torch.int32)))
-               for ws in _workspaces.values())
+               for ws in [*_workspaces.values(), *_retired] if ws.dtype == torch.float32)
 
 
 _launch = {}
@@ -510,11 +530,15 @@ _sorted_workspaces: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 def sorted_workspace(device: torch.device, nbytes: int, stream: int = 0) -> torch.Tensor:
     """The sorted kernel's byte workspace of (device, stream), at least
     ``nbytes``: allocated unfilled (:func:`_empty`), replaced by a larger
-    one only when a call needs more; it never shrinks.  The kernel writes
-    every byte it reads, so its content between calls does not matter."""
+    one only when a call needs more; it never shrinks, and one it replaces
+    is kept (a graph may hold it).  The kernel writes every byte it reads,
+    so its content between calls does not matter."""
     key = (torch.device(device), stream)
     ws = _sorted_workspaces.get(key)
     if ws is None or ws.numel() < nbytes:
+        _refuse_under_capture("the sorted kernel's workspace", key[0])
+        if ws is not None:
+            _retired.append(ws)
         ws = _empty(nbytes, torch.uint8, device)
         _sorted_workspaces[key] = ws
     return ws

@@ -27,7 +27,9 @@ eval_ratio per side) from random weights.  The device defaults to ``cuda``
 and a missing card is an error, never a silent CPU run.  ``--distributed``
 (``evaluate`` and ``vis``; torchrun's environment, ``parallel/mesh.py``)
 splits the items over the ranks: NCCL on ``cuda``, Gloo on ``cpu``; rank
-0 writes the metrics of every item.
+0 writes the metrics of every item.  On the card the frames of evaluate,
+vis, bullet, network and render are CUDA graphs (``eval/runner.py:
+CapturedFrame``); ``--eager`` renders them op by op.
 """
 from __future__ import annotations
 
@@ -53,6 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--distributed", action="store_true",
                    help="one rank of a torch.distributed evaluation "
                         "(torchrun's environment): NCCL on cuda, Gloo on cpu")
+    p.add_argument("--eager", action="store_true",
+                   help="render frames op by op from Python, not as captured "
+                        "CUDA graphs (evaluate, vis, bullet, network, render)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -110,14 +115,17 @@ def synthetic_frame(cfg, n_verts: int = 6890, grid: int = 32,
 
 
 def render_frames(cfg, device: torch.device, frames: int, seed: int = 0,
-                  n_verts: int = 6890, grid: int = 32) -> dict:
-    """Render ``frames`` full synthetic frames; returns the last output, the
-    per-frame wall times (each ends in a device synchronize) and counts."""
-    from .eval.runner import AutoBudgetRenderer, eval_chunk
+                  n_verts: int = 6890, grid: int = 32, eager: bool = False) -> dict:
+    """Render ``frames`` full synthetic frames on ``frame_route``'s route;
+    returns the last output, the per-frame wall times (each ends in a
+    device synchronize) and counts."""
+    from .eval.runner import AutoBudgetRenderer, eval_chunk, frame_route
     mspec, rspec, model = build(cfg, device, seed)
     item = synthetic_frame(cfg, n_verts=n_verts, grid=grid, seed=seed)
     chunk = eval_chunk(cfg)
-    renderer = AutoBudgetRenderer(mspec, rspec, chunk)
+    route = frame_route(device, eager)
+    renderer = AutoBudgetRenderer(mspec, rspec, chunk,
+                                  captured=route.name == "captured")
     times, out = [], None
     for _ in range(frames):
         t0 = time.perf_counter()
@@ -125,11 +133,12 @@ def render_frames(cfg, device: torch.device, frames: int, seed: int = 0,
         times.append(time.perf_counter() - t0)
     return {"out": out, "frame_s": times, "rays": int(item["ray_o"].shape[0]),
             "chunk": chunk, "chunks_rendered": renderer.chunks_rendered,
-            "mspec": renderer.mspec}
+            "mspec": renderer.mspec, "route": route}
 
 
-def run_render(cfg, device: torch.device, frames: int, seed: int) -> None:
-    r = render_frames(cfg, device, frames, seed)
+def run_render(cfg, device: torch.device, frames: int, seed: int,
+               eager: bool = False) -> None:
+    r = render_frames(cfg, device, frames, seed, eager=eager)
     rgb = r["out"]["rgb_map"]
     warm = r["frame_s"][1:] or r["frame_s"]
     ms = 1000.0 * float(np.median(warm))
@@ -137,13 +146,16 @@ def run_render(cfg, device: torch.device, frames: int, seed: int) -> None:
           f"{r['chunks_rendered']} chunks rendered; rgb in "
           f"[{rgb.min():.4f}, {rgb.max():.4f}]")
     print(f"render: {ms:.1f} ms/frame ({'warm median' if frames > 1 else 'cold'}), "
-          f"{r['rays'] / (ms / 1000.0):.0f} rays/s on {device}")
+          f"{r['rays'] / (ms / 1000.0):.0f} rays/s on {device}, route {r['route']}")
 
 
-def run_network(cfg, device: torch.device, seed: int) -> None:
+def run_network(cfg, device: torch.device, seed: int, eager: bool = False) -> None:
     """Forward timing (20 timed calls) on the train split's first item, or
-    on a synthetic ``N_rand`` batch when the dataset is not on disk."""
+    on a synthetic ``N_rand`` batch when the dataset is not on disk; on
+    ``frame_route``'s route (captured: the batch as one chunk of a
+    :class:`~.eval.runner.CapturedFrame`, after its warm-up and capture)."""
     from .datasets.tpose_dataset import TPoseDataset
+    from .eval.runner import META_KEYS, RAY_KEYS, CapturedFrame, frame_route
     from .renderer.inb_renderer import render_rays
     from .train.loop import device_batch
     mspec, rspec, model = load(cfg, device, seed)
@@ -166,37 +178,50 @@ def run_network(cfg, device: torch.device, seed: int) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    route = frame_route(device, eager)
+    if route.name == "captured":
+        frame = CapturedFrame(mspec, rspec, n_rays)
+        rays = {k: batch[k] for k in RAY_KEYS}
+        meta = {k: batch[k] for k in META_KEYS if k in batch}
+        forward = lambda: frame(model, rays, meta)
+        warm = 2                                # the warm-up, then the capture
+    else:
+        forward = lambda: render_rays(mspec, rspec, model, batch)
+        warm = 1
     with torch.no_grad():
-        render_rays(mspec, rspec, model, batch)
+        for _ in range(warm):
+            forward()
         sync()
         n = 20
         t0 = time.perf_counter()
         for _ in range(n):
-            render_rays(mspec, rspec, model, batch)
+            forward()
         sync()
     dt = (time.perf_counter() - t0) / n
-    print(f"forward: {dt * 1000:.2f} ms  ({n_rays / dt:.0f} rays/s) on {device}")
+    print(f"forward: {dt * 1000:.2f} ms  ({n_rays / dt:.0f} rays/s) on {device}, "
+          f"route {route}")
 
 
-def run_evaluate(cfg, device: torch.device, seed: int, save_images=None) -> dict:
+def run_evaluate(cfg, device: torch.device, seed: int, save_images=None,
+                 eager: bool = False) -> dict:
     from .eval.runner import evaluate_dataset
     cfg = cfg.replace(eval=True)
     mspec, rspec, model = load(cfg, device, seed)
     if save_images is None:
         save_images = not cfg.get("fast_eval", False)
     return evaluate_dataset(cfg, mspec, rspec, model, split="test",
-                            save_images=save_images)
+                            save_images=save_images, eager=eager)
 
 
-def run_vis(cfg, device: torch.device, seed: int) -> dict:
+def run_vis(cfg, device: torch.device, seed: int, eager: bool = False) -> dict:
     """The test split rendered to comparison PNGs (and scored)."""
-    return run_evaluate(cfg, device, seed, save_images=True)
+    return run_evaluate(cfg, device, seed, save_images=True, eager=eager)
 
 
-def run_bullet(cfg, device: torch.device, seed: int):
+def run_bullet(cfg, device: torch.device, seed: int, eager: bool = False):
     from .eval.visualizer import render_novel_views
     mspec, _, model = load(cfg, device, seed)
-    return render_novel_views(cfg, mspec, model)
+    return render_novel_views(cfg, mspec, model, eager=eager)
 
 
 def run_dataset(cfg, device: torch.device, seed: int) -> None:
@@ -277,6 +302,8 @@ DISPATCH = {
 
 
 SHARDED = ("evaluate", "vis")
+# the types whose frames take --eager (the rest render no frame)
+FRAME_TYPES = ("evaluate", "vis", "bullet", "network")
 
 
 def main(argv=None) -> None:
@@ -305,14 +332,15 @@ def _main(args, device) -> None:
         cfg = cfg.replace(test=cfg.test.replace(epoch=args.epoch))
     device = resolve_device(str(device))
     if args.type == "render":
-        run_render(cfg, device, args.frames, args.seed)
+        run_render(cfg, device, args.frames, args.seed, eager=args.eager)
         return
     if cfg.get("auto_budget", False):
         # the budget probe of training, so the spec has the budgets the
         # checkpoint was trained at
         from .models.budget import apply_auto_budget
         cfg = apply_auto_budget(cfg)
-    DISPATCH[args.type](cfg, device, args.seed)
+    kwargs = {"eager": args.eager} if args.type in FRAME_TYPES else {}
+    DISPATCH[args.type](cfg, device, args.seed, **kwargs)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,312 @@
+"""The port's counterpart of the JAX package's compiled programs: the train
+step as a CUDA graph (``torch.cuda.CUDAGraph``), captured once per static
+key and replayed (``instant_nvr_tpu/train/loop.py:186``'s ``jax.jit`` of
+``make_train_step``).
+
+:func:`step_route` chooses, before a run, between this route
+(``captured``) and the eager step of ``train/step.py:make_train_step``
+(``eager``, with its reason); the loop, ``train_net`` and ``bench`` print
+it.  Nothing falls back: a capture or replay that fails raises, and
+:class:`CapturedStep` refuses a CPU device.
+
+A :class:`CapturedStep` keys its graphs as jit would retrace: the model
+and render specs and loss weights it was made with, and the batch's keys,
+shapes and dtypes (the budgets follow from its ray count).  For each key:
+
+  - static input buffers for the batch and the draws: each call copies the
+    batch in, and makes the draws eagerly with ``draw_render`` from the
+    caller's generator (bit for bit the eager step's draws) into them;
+  - ``WARMUP_STEPS`` eager steps of the capturable body
+    (``train/step.py:make_step_body``) on a side stream (one a device,
+    :func:`side_stream`, shared by every captured program), PyTorch's
+    whole-network capture recipe: they build the kernels, the constants,
+    the scatter workspaces of that stream, the optimizer's state and the
+    libraries' handles, so that the capture allocates and copies nothing
+    from the host;
+  - then the capture on that stream, and a replay per step after; a
+    replay raises if the parameters or the optimizer's moments are no
+    longer the tensors the graph captured (:func:`held_tensors`).
+
+The optimizer update reads its rate and bias corrections from a
+:class:`~.state.DeviceSchedule` at a device step counter that follows
+``state.step`` (set from it whenever they differ, as after a resume);
+``state.step`` and the optimizer's host step counts advance on the host.
+The stats a step returns are the graph's static outputs: a caller that
+keeps one past the next step clones it.
+
+The kernels' ``.launches`` counters count Python calls, which a replay
+does not make: :func:`capture` records each graph's launches and takes
+them back out of the counters (the capture launched nothing), and
+:func:`replay` adds them on every replay.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..models import inb
+from ..ops import knn, scatter
+from ..parallel import mesh as pmesh
+from ..renderer.inb_renderer import RenderSpec
+from .state import DeviceSchedule, OptaxAdam, TrainState
+from .step import LossWeights, PatchLossFn, draw_render, make_step_body
+
+WARMUP_STEPS = 3
+# steps the first device schedule covers; a run that goes past them gets
+# tables of twice the size and its graphs captured again
+SCHEDULE_STEPS = 4096
+
+# the counters of every kernel wrapper a captured program may launch
+# (``exact_scatter_add.calls`` counts the exact route's ``index_add_``)
+_COUNTERS = ((knn.knn_blend, "launches"), (knn.knn_topk, "launches"),
+             (scatter.segmented_scatter_add, "launches"),
+             (scatter.onehot_scatter_add, "launches"),
+             (scatter.sorted_scatter_add, "launches"),
+             (scatter.exact_scatter_add, "calls"))
+
+Launches = Tuple[int, ...]
+
+
+def _counts() -> Launches:
+    return tuple(getattr(fn, attr) for fn, attr in _COUNTERS)
+
+
+def _set_counts(counts: Launches) -> None:
+    for (fn, attr), n in zip(_COUNTERS, counts):
+        setattr(fn, attr, n)
+
+
+def capture(fn: Callable, stream: torch.cuda.Stream):
+    """Capture ``fn()`` into a new CUDA graph on ``stream`` -> (graph, its
+    output, the kernel launches it holds).  The counters are left as they
+    were before the capture.  Other threads may use the card meanwhile
+    (``thread_local``: the prefetcher's copies)."""
+    before = _counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+        out = fn()
+    launches = tuple(a - b for a, b in zip(_counts(), before))
+    _set_counts(before)
+    return graph, out, launches
+
+
+def replay(graph: torch.cuda.CUDAGraph, launches: Launches) -> None:
+    """Replay ``graph`` on the current stream and count its launches."""
+    graph.replay()
+    _set_counts(tuple(a + b for a, b in zip(_counts(), launches)))
+
+
+_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def side_stream(device) -> torch.cuda.Stream:
+    """The one stream of ``device`` that every captured program warms up
+    and captures on: the scatter workspaces are kept per stream, so one
+    stream keeps one set of them."""
+    device = torch.device(device)
+    stream = _streams.get(device)
+    if stream is None:
+        stream = _streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def on_side_stream(fn: Callable, stream: torch.cuda.Stream, device):
+    """``fn()`` on ``stream``, ordered after the current stream's work and
+    before its later work; the tensors it returns (a dict) are marked as
+    used by the current stream."""
+    cur = torch.cuda.current_stream(device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        out = fn()
+    cur.wait_stream(stream)
+    for v in out.values():
+        if torch.is_tensor(v):
+            v.record_stream(cur)
+    return out
+
+
+def signature(tensors: Dict[str, torch.Tensor]) -> tuple:
+    """The static key of a dict of tensors: each key with its tensor's
+    shape, dtype and device."""
+    return tuple((k, tuple(v.shape), v.dtype, v.device)
+                 for k, v in sorted(tensors.items()))
+
+
+def static_copy(tensors: Dict[str, torch.Tensor], device=None) -> Dict[str, torch.Tensor]:
+    """A buffer of each tensor's shape and dtype, on ``device`` (default
+    the tensor's own)."""
+    return {k: torch.empty(v.shape, dtype=v.dtype,
+                           device=v.device if device is None else device)
+            for k, v in tensors.items()}
+
+
+def fill(static: Dict[str, torch.Tensor], tensors: Dict[str, torch.Tensor]) -> None:
+    """Copy ``tensors`` into their static buffers (on the current stream)."""
+    for k, v in tensors.items():
+        static[k].copy_(v)
+
+
+class Route(NamedTuple):
+    """A step route: ``captured`` or ``eager``, and why eager."""
+    name: str
+    reason: str = ""
+
+    def __str__(self) -> str:
+        return self.name + (f" ({self.reason})" if self.reason else "")
+
+
+def step_route(cfg, device, eager: bool = False,
+               world: Optional[int] = None) -> Route:
+    """The train step's route for ``cfg`` on ``device``, chosen before the
+    run: ``captured`` on a CUDA device for Adam (float32 or bfloat16 first
+    moment) on one process without ``--detect_anomaly`` or ``remat``;
+    otherwise ``eager`` with its reason.  ``eager`` forces the eager route
+    (``--eager``); ``world`` defaults to the process group's size."""
+    device = torch.device(device)
+    world = pmesh.world_size() if world is None else world
+    optim = cfg.train.get("optim", "adam")
+    if eager:
+        return Route("eager", "--eager")
+    if device.type != "cuda":
+        return Route("eager", f"CUDA graphs need a CUDA device, not {device.type}")
+    if world > 1:
+        return Route("eager", f"--distributed over {world} ranks: the gradient "
+                              f"all-reduce runs eagerly")
+    if optim != "adam":
+        return Route("eager", f"optim {optim}: only Adam has an update read from "
+                              f"the device")
+    if torch.is_anomaly_enabled():
+        return Route("eager", "--detect_anomaly: anomaly mode checks each op "
+                              "on the host")
+    if cfg.get("remat", False):
+        return Route("eager", "remat: torch.utils.checkpoint reruns the forward "
+                              "from Python in the backward")
+    return Route("captured")
+
+
+def held_tensors(state: TrainState) -> tuple:
+    """What a captured step's graph holds by address besides its own
+    buffers: the model's parameters and the optimizer's moments (an
+    optimizer ``load_state_dict`` of other tensors replaces the moments)."""
+    return tuple(state.model.parameters()) + tuple(
+        v for st in state.optimizer.state.values() for v in st.values()
+        if torch.is_tensor(v))
+
+
+def same_tensors(a: tuple, b: tuple) -> bool:
+    """Whether two tuples hold the very same tensor objects."""
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+class Graph:
+    """One static key of a captured program: its static input buffers
+    (``inputs[name]``, one dict of tensors a name), the eager warm-up calls
+    made, and the graph with its static outputs and launches once
+    captured."""
+
+    def __init__(self, inputs: Dict[str, Dict[str, torch.Tensor]], device=None):
+        self.inputs = {name: static_copy(d, device) for name, d in inputs.items()}
+        self.warm = 0
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Dict[str, torch.Tensor] = {}
+        self.launches: Launches = ()
+        self.held: tuple = ()
+
+    def fill(self, inputs: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        for name, d in inputs.items():
+            fill(self.inputs[name], d)
+
+
+class CapturedStep:
+    """The train step replayed as CUDA graphs; called as
+    ``make_train_step``'s step: ``(state, batch, generator=None,
+    draws=None) -> (state, stats)``, the stats being the graph's static
+    outputs (see the module doc).  ``n_steps`` is how many steps the first
+    device schedule covers."""
+
+    def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
+                 patch_loss_fn: Optional[PatchLossFn] = None,
+                 n_steps: int = SCHEDULE_STEPS):
+        self.mspec, self.rspec, self.lw = mspec, rspec, lw
+        self.body = make_step_body(mspec, rspec, lw, patch_loss_fn)
+        self.n_steps = int(n_steps)
+        self.graphs: Dict[tuple, Graph] = {}
+        self.captures = 0
+        self.replays = 0
+        self._bound = None          # (model, optimizer) the graphs hold
+        self.sched: Optional[DeviceSchedule] = None
+        self.dstep: Optional[torch.Tensor] = None
+        self._dstep_at = None       # state.step the device counter holds
+
+    def _bind(self, state: TrainState, device: torch.device) -> None:
+        """Check the state, and (re)make the schedule when it is another
+        state's or too short; the graphs go with it."""
+        if not isinstance(state.optimizer, OptaxAdam):
+            raise TypeError(f"the captured step updates with OptaxAdam's device "
+                            f"schedule, not {type(state.optimizer).__name__} "
+                            f"(step_route gives such a run the eager route)")
+        steps = {int(st["step"]) for st in state.optimizer.state.values()}
+        if steps - {state.step}:
+            raise ValueError(f"optimizer step counts {sorted(steps)} differ from "
+                             f"the state's step {state.step}")
+        bound = (state.model, state.optimizer)
+        if (self._bound is not None and bound[0] is self._bound[0]
+                and bound[1] is self._bound[1] and state.step < self.sched.n_steps):
+            return
+        n = max(self.n_steps, state.step + 1,
+                2 * self.sched.n_steps if self.sched is not None else 0)
+        self.sched = DeviceSchedule(state.optimizer, state.schedule, n, device)
+        self.dstep = torch.zeros((), dtype=torch.int64, device=device)
+        self._dstep_at = 0
+        self.graphs.clear()
+        self._bound = bound
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                 generator: torch.Generator | None = None,
+                 draws: Dict[str, torch.Tensor] | None = None):
+        device = batch["ray_o"].device
+        if device.type != "cuda":
+            raise RuntimeError(f"the captured step runs on a CUDA device, not "
+                               f"{device}; the eager step (make_train_step) "
+                               f"runs on the CPU")
+        if pmesh.world_size() > 1:
+            raise RuntimeError("the captured step runs on one process; "
+                               "--distributed takes the eager step")
+        self._bind(state, device)
+        if draws is None:
+            draws = draw_render(self.mspec, self.rspec, batch["ray_o"].shape[0],
+                                generator, device)
+        inputs = {"batch": batch, "draws": draws}
+        key = signature(batch)
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = Graph(inputs)
+        g.fill(inputs)
+        if self._dstep_at != state.step:
+            self.dstep.fill_(state.step)
+
+        def run():
+            return self.body(state, g.inputs["batch"], g.inputs["draws"],
+                             self.sched, self.dstep)
+
+        if g.graph is None and g.warm < WARMUP_STEPS:
+            stats = on_side_stream(run, side_stream(device), device)
+            g.warm += 1
+        else:
+            if g.graph is None:
+                g.graph, g.out, g.launches = capture(run, side_stream(device))
+                g.held = held_tensors(state)
+                self.captures += 1
+            elif not same_tensors(held_tensors(state), g.held):
+                raise RuntimeError("the model's parameters or the optimizer's moments "
+                                   "are other tensors than the graph captured (a "
+                                   "load_state_dict after the capture?): make a new "
+                                   "CapturedStep")
+            replay(g.graph, g.launches)
+            self.replays += 1
+            stats = g.out
+        state.optimizer.advance_steps()
+        state.step += 1
+        self._dstep_at = state.step
+        return state, stats

@@ -9,6 +9,8 @@
     keeping the per-frame and static tensors in a device cache;
   - a per-step generator seeded by the global step, so a resumed run
     draws what an unbroken one would;
+  - the step on ``train/compiled.py:step_route``'s route, printed first:
+    on the card a CUDA graph (``CapturedStep``), else the eager step;
   - a console line every ``log_interval`` steps, the host data wait per
     epoch, the error map of MSE-guided sampling;
   - a checkpoint every ``save_latest_ep`` (latest) and ``save_ep``
@@ -51,6 +53,7 @@ from ..parallel import mesh as pmesh
 from ..utils import native
 from ..utils.intervals import busy_us
 from .checkpoint import load_checkpoint, save_checkpoint
+from .compiled import CapturedStep, step_route
 from .recorder import Recorder
 from .stages import stage_for_epoch
 from .state import TrainState, create_train_state
@@ -183,10 +186,12 @@ def _device_seconds(events) -> Optional[float]:
 
 def train(cfg: Config, device: torch.device, resume: bool = True,
           profile_window: Optional[tuple] = None,
-          seed: int = 0) -> TrainResult:
+          seed: int = 0, eager: bool = False) -> TrainResult:
     """Train ``cfg`` on ``device`` from a random model (``seed``) or the
     last checkpoint (``resume``).  ``profile_window=(lo, hi)`` traces the
-    steps [lo, hi) of this run into ``record_dir/profile``."""
+    steps [lo, hi) of this run into ``record_dir/profile``.  The step runs
+    on ``train/compiled.py:step_route``'s route, printed first (``eager``
+    forces the eager one; so does the validation's frame)."""
     from ..run import build, resolve_device
     # on the card: TF32 off, so the VGG loss's cuDNN convolutions and the
     # matmuls run in float32 as the JAX package's do
@@ -204,9 +209,11 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
     lw = make_loss_weights(cfg)
     state = create_train_state(cfg, model)
     patch_fn = make_patch_loss_fn(cfg) if lw.use_patch else None
-    step_fn = make_train_step(mspec, rspec, lw, patch_fn)
-
     n_epochs = cfg.train.epoch
+    route = step_route(cfg, device, eager)
+    print(f"step route: {route}", flush=True)
+    step_fn = (CapturedStep(mspec, rspec, lw, patch_fn, n_steps=n_epochs * cfg.ep_iter)
+               if route.name == "captured" else make_train_step(mspec, rspec, lw, patch_fn))
     begin_epoch, meta = 0, None
     if resume:
         meta = load_checkpoint(cfg.trained_model_dir, state)
@@ -272,7 +279,9 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
 
                     gen.manual_seed(seed * 1_000_003 + epoch * ep_iter + it)
                     state, stats = step_fn(state, batch, generator=gen)
-                    ep_losses.append(stats["loss"])
+                    # a captured step's stats are its graph's outputs, which
+                    # the next replay overwrites
+                    ep_losses.append(stats["loss"].clone())
                     steps_seen += 1
 
                     if prof is not None and steps_seen == profile_window[1]:
@@ -325,7 +334,7 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
                 save_checkpoint(cfg.trained_model_dir, epoch, state,
                                 recorder.state_dict(), latest=False)
             epochs[-1] = epochs[-1]._replace(**_after_epoch(
-                cfg, mspec, rspec, state.model, epoch, item, datasets))
+                cfg, mspec, rspec, state.model, epoch, item, datasets, eager))
         if prof is not None:       # the window outlasted the run
             window = _stop_profile(prof, prof_t0, sync, steps_seen - profile_window[0])
             prof = None
@@ -363,7 +372,8 @@ def _profile_summary(prof, wall: float, steps: int, record_dir: str) -> Dict:
 
 
 def _after_epoch(cfg: Config, mspec, rspec, model, epoch: int, item: Dict,
-                 datasets: Dict[float, TPoseDataset]) -> Dict[str, float]:
+                 datasets: Dict[float, TPoseDataset],
+                 eager: bool = False) -> Dict[str, float]:
     """The cadence after an epoch's steps and checkpoint: the geometry
     cube, validation, visualization.  Returns their wall times."""
     t0 = time.time()
@@ -377,20 +387,20 @@ def _after_epoch(cfg: Config, mspec, rspec, model, epoch: int, item: Dict,
     t1 = time.time()
     if (epoch + 1) % cfg.eval_ep == 0:
         try:
-            validate(cfg, mspec, rspec, model, epoch)
+            validate(cfg, mspec, rspec, model, epoch, eager)
         except FileNotFoundError as e:
             print(f"skipping val (no data): {e}")
     if cfg.get("vis_ep", 0) and (epoch + 1) % cfg.vis_ep == 0:
         try:
             evaluate_dataset(cfg.replace(eval=True), mspec, rspec, model,
                              split="val", epoch=epoch, max_items=1,
-                             save_images=True)
+                             save_images=True, eager=eager)
         except FileNotFoundError as e:
             print(f"skipping vis (no data): {e}")
     return {"cube_s": t1 - t0, "eval_s": time.time() - t1}
 
 
-def validate(cfg: Config, mspec, rspec, model, epoch: int):
+def validate(cfg: Config, mspec, rspec, model, epoch: int, eager: bool = False):
     """The val split's first 4 items, scored into ``metrics_epoch{epoch}.npy``."""
     evaluate_dataset(cfg.replace(eval=True), mspec, rspec, model, split="val",
-                     epoch=epoch, max_items=4)
+                     epoch=epoch, max_items=4, eager=eager)

@@ -17,10 +17,12 @@ The schedule is read at the state's step before every update, as optax
 reads its step count.  The JAX package's bf16 table shadow is not carried
 over: it only fuses the table cast into the optimizer sweep.
 
-``train.moment_dtype: bfloat16`` (Adam only, as in the JAX package) keeps
-the first moment in bfloat16 and the second in float32: :class:`AdamBf16Mu`,
-optax's ``scale_by_adam(mu_dtype=bfloat16)`` in its order of operations.
-Any other value keeps both moments in float32, as the JAX package does.
+Adam is :class:`OptaxAdam`, optax's ``scale_by_adam`` in its order of
+operations; ``train.moment_dtype: bfloat16`` (Adam only, as in the JAX
+package) keeps the first moment in bfloat16 and the second in float32
+(:class:`AdamBf16Mu`).  Any other value keeps both moments in float32, as
+the JAX package does.  Their update also runs from a
+:class:`DeviceSchedule` (the captured step, ``train/compiled.py``).
 """
 from __future__ import annotations
 
@@ -93,81 +95,167 @@ def multi_step(base_lr: float, boundaries: Dict[int, float]) -> Schedule:
     return schedule
 
 
-class AdamBf16Mu(torch.optim.Optimizer):
-    """Adam with a bfloat16 first moment: ``optax.adam(lr, eps=eps,
-    mu_dtype=jnp.bfloat16)`` after ``optax.add_decayed_weights``.
+def bias_correction(beta: float, step: int) -> float:
+    """optax's bias correction ``1 - beta^t`` in float32 with a correctly
+    rounded pow (XLA's; ``torch.pow`` cubes by products), as a host float."""
+    return float(np.float32(1) - np.float32(beta) ** np.float32(step))
 
-    ``torch.optim.Adam`` keeps its moments in the parameter's dtype, so this
-    is its own update, in ``scale_by_adam``'s order: with g the gradient
-    (plus ``weight_decay * p``),
 
-        mu = (1 - b1) g + bf16(b1) * mu16      (the product rounded to bf16,
-                                                as JAX's weak-typed b1 * mu16)
+class OptaxAdam(torch.optim.Optimizer):
+    """``optax.adam(lr, eps=eps, mu_dtype=mu_dtype)`` after
+    ``optax.add_decayed_weights``, in ``scale_by_adam``'s order of
+    operations: with g the gradient (plus ``weight_decay * p``),
+
+        mu = (1 - b1) g + b1 * mu               (float32 moment)
+        mu = (1 - b1) g + bf16(b1) * mu16       (bfloat16 moment: the product
+                                                 rounded to bf16, as JAX's
+                                                 weak-typed b1 * mu16)
         nu = (1 - b2) g^2 + b2 nu               (float32)
         p += -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)
         mu16 = bf16(mu)                         (cast after the update)
 
-    The update uses the float32 ``mu`` before it is cast.  The state
-    (``exp_avg`` bf16, ``exp_avg_sq`` f32, ``step``) round-trips through
-    ``state_dict`` bit for bit."""
+    The update uses the float32 ``mu`` before it is cast.  Its per-step
+    scalars (-lr, both bias corrections) are host floats in :meth:`step`,
+    or 0-d device tensors read from a :class:`DeviceSchedule` in
+    :meth:`step_device`, the form a CUDA graph can replay; both run the same
+    ``torch._foreach_*`` sweeps, so they give the same bits.  (The port's
+    Adam; ``torch.optim.Adam`` fuses its last product into ``addcdiv``,
+    which no sweep with a device scalar reproduces.)  The state
+    (``exp_avg`` in ``mu_dtype``, ``exp_avg_sq`` f32, ``step``) round-trips
+    through ``state_dict`` bit for bit; a ``step`` read from a
+    ``torch.optim.Adam`` checkpoint (a tensor) is taken as its integer."""
+
+    mu_dtype = torch.float32
 
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0):
         super().__init__(params, {"lr": lr, "betas": betas, "eps": eps,
                                   "weight_decay": weight_decay})
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        """One update of every parameter with a gradient, as a handful of
-        ``torch._foreach_*`` sweeps over each group (no host sync)."""
-        for group in self.param_groups:
-            b1, b2 = group["betas"]
-            eps, wd, lr = group["eps"], group["weight_decay"], group["lr"]
-            ps = [p for p in group["params"] if p.grad is not None]
-            if not ps:
-                continue
-            sts = [self.state[p] for p in ps]
-            for p, st in zip(ps, sts):
-                if not st:
-                    st["step"] = 0
-                    st["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
-                    st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
-                st["step"] += 1
-            gs = [p.grad.float() for p in ps]
-            if wd:
-                gs = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
+    def _states(self, group, advance: bool = True):
+        """(params with a gradient, their states), each state made and,
+        with ``advance``, its ``step`` advanced."""
+        ps = [p for p in group["params"] if p.grad is not None]
+        sts = [self.state[p] for p in ps]
+        for p, st in zip(ps, sts):
+            if not st:
+                st["step"] = 0
+                st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                st["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+            if advance:
+                st["step"] = int(st["step"]) + 1
+        return ps, sts
+
+    def _update(self, group, ps, sts, bc1, bc2, neg_lr) -> None:
+        """One update of ``ps``; ``bc1``, ``bc2`` and ``neg_lr`` are scalars
+        (host floats, a list of one a parameter, or 0-d tensors)."""
+        b1, b2 = group["betas"]
+        eps, wd = group["eps"], group["weight_decay"]
+        gs = [p.grad.float() for p in ps]
+        if wd:
+            gs = torch._foreach_add(gs, torch._foreach_mul(ps, wd))
+        mu = torch._foreach_mul(gs, 1 - b1)
+        mus = [st["exp_avg"] for st in sts]
+        if self.mu_dtype == torch.bfloat16:
             # b1 * mu16 in bfloat16, as JAX's weak-typed product: b1 rounded
             # to bfloat16 is a Python float, so no tensor is copied
-            b1_16 = float(torch.tensor(b1, dtype=torch.bfloat16))
-            mu = torch._foreach_mul(gs, 1 - b1)
-            torch._foreach_add_(mu, torch._foreach_mul([st["exp_avg"] for st in sts], b1_16))
-            nus = [st["exp_avg_sq"] for st in sts]
-            torch._foreach_mul_(nus, b2)
-            g2 = torch._foreach_mul(gs, gs)
-            torch._foreach_mul_(g2, 1 - b2)
-            torch._foreach_add_(nus, g2)
-            # optax's bias corrections, 1 - b^t in float32 with a correctly
-            # rounded pow (XLA's; torch.pow cubes by products)
-            bc1, bc2 = ([float(np.float32(1) - np.float32(b) ** np.float32(st["step"]))
-                         for st in sts] for b in (b1, b2))
-            den = torch._foreach_div(nus, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, eps)
-            upd = torch._foreach_div(mu, bc1)
-            torch._foreach_div_(upd, den)
-            torch._foreach_mul_(upd, -lr)
-            torch._foreach_add_(ps, upd)
-            torch._foreach_copy_([st["exp_avg"] for st in sts], mu)
+            torch._foreach_add_(mu, torch._foreach_mul(
+                mus, float(torch.tensor(b1, dtype=torch.bfloat16))))
+        else:
+            torch._foreach_add_(mu, torch._foreach_mul(mus, b1))
+        nus = [st["exp_avg_sq"] for st in sts]
+        torch._foreach_mul_(nus, b2)
+        g2 = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_add_(nus, g2)
+        den = torch._foreach_div(nus, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        upd = torch._foreach_div(mu, bc1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_mul_(upd, neg_lr)
+        torch._foreach_add_(ps, upd)
+        torch._foreach_copy_(mus, mu)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One update of every parameter with a gradient at each group's
+        ``lr``, as a handful of ``torch._foreach_*`` sweeps over each group
+        (no host sync)."""
+        for group in self.param_groups:
+            ps, sts = self._states(group)
+            if not ps:
+                continue
+            b1, b2 = group["betas"]
+            bc1 = [bias_correction(b1, st["step"]) for st in sts]
+            bc2 = [bias_correction(b2, st["step"]) for st in sts]
+            self._update(group, ps, sts, bc1, bc2, -group["lr"])
         return None
+
+    @torch.no_grad()
+    def step_device(self, sched: "DeviceSchedule", dstep: torch.Tensor) -> None:
+        """:meth:`step` with its per-step scalars read from ``sched``'s
+        tables at the device step counter ``dstep`` (the state's step before
+        the update, a 0-d int64 tensor): no host value enters the sweeps, so
+        a CUDA graph of it replays each step's own rate.  The host ``step``
+        of the states is left as it is: the caller advances it once a step
+        (:meth:`advance_steps`), for ``state_dict``."""
+        def at(table):
+            # a gather on the device: indexing with a 0-d tensor would read
+            # the index on the host, a wait that a graph cannot capture
+            return table.index_select(0, dstep.reshape(1)).reshape(())
+        bc1, bc2 = at(sched.bc1), at(sched.bc2)
+        for i, group in enumerate(self.param_groups):
+            ps, sts = self._states(group, advance=False)
+            if ps:
+                self._update(group, ps, sts, bc1, bc2, at(sched.neg_lr[i]))
+
+    def advance_steps(self) -> None:
+        """Advance every state's host ``step`` by one (after a
+        :meth:`step_device`)."""
+        for st in self.state.values():
+            st["step"] = int(st["step"]) + 1
 
     def load_state_dict(self, state_dict):
         """``Optimizer.load_state_dict`` casts every moment to the
-        parameter's dtype; the first moment goes back to bfloat16 (exact:
-        it was a bfloat16 value)."""
+        parameter's dtype; the first moment goes back to ``mu_dtype``
+        (exact: it was a value of that dtype)."""
         super().load_state_dict(state_dict)
         for st in self.state.values():
             if "exp_avg" in st:
-                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+
+
+class AdamBf16Mu(OptaxAdam):
+    """:class:`OptaxAdam` with a bfloat16 first moment: ``optax.adam(lr,
+    eps=eps, mu_dtype=jnp.bfloat16)`` (``train.moment_dtype: bfloat16``)."""
+
+    mu_dtype = torch.bfloat16
+
+
+class DeviceSchedule:
+    """The per-step scalars of an :class:`OptaxAdam` run on the device, for
+    steps ``0 .. n_steps - 1`` (the state's step before each update): each
+    group's ``neg_lr`` (``-schedule(t) * lr_scale``) and the bias
+    corrections ``bc1``, ``bc2`` of step count t + 1, each (n_steps,)
+    float32, made with numpy by the same host expressions as
+    :meth:`OptaxAdam.step` (so the float32 values are the ones its sweeps
+    round its host scalars to)."""
+
+    def __init__(self, optimizer: OptaxAdam, schedule: Schedule, n_steps: int,
+                 device):
+        betas = {tuple(g["betas"]) for g in optimizer.param_groups}
+        if len(betas) != 1:
+            raise ValueError(f"param groups with different betas {sorted(betas)}")
+        b1, b2 = betas.pop()
+        self.n_steps = int(n_steps)
+        steps = range(1, self.n_steps + 1)
+        put = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(device)
+        self.bc1 = put([bias_correction(b1, t) for t in steps])
+        self.bc2 = put([bias_correction(b2, t) for t in steps])
+        lrs = [schedule(t) for t in range(self.n_steps)]
+        self.neg_lr = [put([-(lr * g["lr_scale"]) for lr in lrs])
+                       for g in optimizer.param_groups]
 
 
 def _param_groups(model: nn.Module, mlp_scale: float):
@@ -205,7 +293,7 @@ def make_optimizer(cfg, model: nn.Module
     if optim == "adam" and cfg.train.get("moment_dtype", "float32") == "bfloat16":
         opt = AdamBf16Mu(groups, eps=cfg.train.eps, weight_decay=wd)
     elif optim == "adam":
-        opt = torch.optim.Adam(groups, eps=cfg.train.eps, weight_decay=wd)
+        opt = OptaxAdam(groups, eps=cfg.train.eps, weight_decay=wd)
     elif optim == "radam":
         opt = torch.optim.RAdam(groups, eps=cfg.train.eps, weight_decay=wd)
     elif optim == "sgd":

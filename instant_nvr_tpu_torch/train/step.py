@@ -277,6 +277,29 @@ def compute_losses(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
     return loss, stats
 
 
+def forward_backward(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
+                     state: TrainState, batch: Dict[str, torch.Tensor],
+                     generator: torch.Generator | None = None,
+                     draws: Dict[str, torch.Tensor] | None = None,
+                     patch_loss_fn: Optional[PatchLossFn] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """A step up to its update: zero the grads, forward, backward, a zero
+    gradient for every parameter the loss does not reach; returns the
+    stats."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, stats = compute_losses(mspec, rspec, lw, state.model, batch,
+                                 generator, draws, step=state.step,
+                                 patch_loss_fn=patch_loss_fn)
+    loss.backward()
+    # JAX's gradient of a parameter the loss does not reach is zero, and
+    # optax still steps it (weight decay, decaying moments), where
+    # torch.optim skips a parameter without a gradient
+    for p in state.model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return stats
+
+
 def make_train_step(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
                     patch_loss_fn: Optional[PatchLossFn] = None):
     """The train step ``(state, batch, generator=None, draws=None) ->
@@ -284,22 +307,14 @@ def make_train_step(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
     update at the schedule's rate for ``state.step``; the state is updated
     in place.  Stats are detached tensors (nothing waits for the device).
     ``patch_loss_fn`` is the patch-mode image loss (used when
-    ``lw.use_patch``)."""
+    ``lw.use_patch``).  This is the eager route; ``train/compiled.py``
+    replays :func:`make_step_body` as a CUDA graph."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator | None = None,
                    draws: Dict[str, torch.Tensor] | None = None):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, stats = compute_losses(mspec, rspec, lw, state.model, batch,
-                                     generator, draws, step=state.step,
-                                     patch_loss_fn=patch_loss_fn)
-        loss.backward()
-        # JAX's gradient of a parameter the loss does not reach is zero,
-        # and optax still steps it (weight decay, decaying moments), where
-        # torch.optim skips a parameter without a gradient
-        for p in state.model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        stats = forward_backward(mspec, rspec, lw, state, batch, generator,
+                                 draws, patch_loss_fn)
         if pmesh.world_size() > 1:
             pmesh.all_reduce_grads(state.model.parameters())
             stats = reduce_stats(stats)
@@ -309,6 +324,29 @@ def make_train_step(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
         return state, {k: v.detach() for k, v in stats.items()}
 
     return train_step
+
+
+def make_step_body(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
+                   patch_loss_fn: Optional[PatchLossFn] = None):
+    """The step as a CUDA graph can capture it: ``body(state, batch, draws,
+    sched, dstep) -> stats`` is :func:`make_train_step`'s step on one
+    process, with the draws given (``draw_render``'s, made before it) and
+    the optimizer's update read from the :class:`~.state.DeviceSchedule`
+    ``sched`` at the device step counter ``dstep`` (a 0-d int64 tensor,
+    advanced by one on the device).  It reads no host value that changes
+    from step to step and never waits for the device; ``state.step`` and
+    the optimizer's host step counts are the caller's to advance."""
+
+    def body(state: TrainState, batch: Dict[str, torch.Tensor],
+             draws: Dict[str, torch.Tensor], sched, dstep: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+        stats = forward_backward(mspec, rspec, lw, state, batch, None, draws,
+                                 patch_loss_fn)
+        state.optimizer.step_device(sched, dstep)
+        dstep.add_(1)
+        return {k: v.detach() for k, v in stats.items()}
+
+    return body
 
 
 # stats that are not a rank's share of a sum (reduce_stats)

@@ -13,7 +13,9 @@ starts fresh).  ``--dry_run`` prints the parameter inventory,
 (``eval/runner.py:evaluate_dataset``: ``result_dir/metrics.npy`` and the
 comparison PNGs).  ``--detect_anomaly`` turns on autograd's anomaly mode;
 the config's ``fix_random`` makes the run deterministic
-(:func:`apply_fix_random`).
+(:func:`apply_fix_random`).  On the card the step is a CUDA graph
+(``train/compiled.py:step_route``, printed first); ``--eager`` runs it op
+by op.
 
     python -m instant_nvr_tpu_torch.train_net --synthetic --steps 100
     python -m instant_nvr_tpu_torch.train_net --device cpu --tiny --steps 3
@@ -45,6 +47,7 @@ import torch
 from .models import inb
 from .parallel import mesh as pmesh
 from .renderer.inb_renderer import RenderSpec
+from .train.compiled import CapturedStep, Route, step_route
 from .train.state import TrainState, create_train_state
 from .train.step import LossWeights, make_loss_weights, make_train_step
 
@@ -63,8 +66,9 @@ class Trainer(NamedTuple):
     rspec: RenderSpec
     lw: LossWeights
     state: TrainState
-    step: object                 # make_train_step's function
+    step: object                 # make_train_step's function or a CapturedStep
     batch: Dict[str, torch.Tensor]
+    route: Route = Route("eager")
 
 
 def synthetic_batch_np(cfg, tiny: bool = False,
@@ -92,13 +96,22 @@ def synthetic_batch(cfg, device: torch.device, tiny: bool = False,
 
 
 def build_trainer(cfg, device: torch.device, seed: int = 0,
-                  tiny: bool = False) -> Trainer:
+                  tiny: bool = False, eager: bool = False,
+                  n_steps: int | None = None) -> Trainer:
+    """The synthetic run's trainer; its step takes
+    ``train/compiled.py:step_route``'s route (a :class:`CapturedStep`
+    whose device schedule covers ``n_steps`` steps, or the eager step)."""
     from .run import build
     mspec, rspec, model = build(cfg, device, seed)
     lw = make_loss_weights(cfg)
-    return Trainer(mspec, rspec, lw, create_train_state(cfg, model),
-                   make_train_step(mspec, rspec, lw),
-                   synthetic_batch(cfg, device, tiny))
+    route = step_route(cfg, device, eager)
+    if route.name == "captured":
+        kw = {} if n_steps is None else {"n_steps": n_steps}
+        step = CapturedStep(mspec, rspec, lw, **kw)
+    else:
+        step = make_train_step(mspec, rspec, lw)
+    return Trainer(mspec, rspec, lw, create_train_state(cfg, model), step,
+                   synthetic_batch(cfg, device, tiny), route)
 
 
 def parse_args(argv=None):
@@ -128,6 +141,9 @@ def parse_args(argv=None):
     p.add_argument("--detect_anomaly", action="store_true",
                    help="torch.autograd's anomaly mode: a NaN made in backward "
                         "raises, naming the op (the JAX package's debug_nans)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the step op by op from Python, not as a captured "
+                        "CUDA graph (train/compiled.py:step_route)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -185,25 +201,27 @@ def _main(args, device) -> None:
     device = resolve_device(str(device or args.device))
     if args.synthetic or args.steps is not None:
         run_synthetic(cfg, device, 100 if args.steps is None else args.steps,
-                      args.seed, args.tiny)
+                      args.seed, args.tiny, args.eager)
         return
     from .train.loop import train
     window = (tuple(int(x) for x in args.profile_window.split(":"))
               if args.profile else None)
     res = train(cfg, device, resume=not args.no_resume, profile_window=window,
-                seed=args.seed)
+                seed=args.seed, eager=args.eager)
     if args.test:
         from .eval.runner import evaluate_dataset
         from .renderer.inb_renderer import make_render_spec
         evaluate_dataset(cfg.replace(eval=True), inb.build_model_spec(cfg),
-                         make_render_spec(cfg), res.state.model, split="test")
+                         make_render_spec(cfg), res.state.model, split="test",
+                         eager=args.eager)
 
 
 def run_synthetic(cfg, device: torch.device, steps: int, seed: int,
-                  tiny: bool) -> None:
+                  tiny: bool, eager: bool = False) -> None:
     """``steps`` MSE steps on the fixed synthetic batch, one line a step
-    (across ranks, each steps on its slice of the batch)."""
-    t = build_trainer(cfg, device, seed, tiny)
+    (across ranks, each steps on its slice of the batch), each naming the
+    step's route."""
+    t = build_trainer(cfg, device, seed, tiny, eager, n_steps=steps)
     batch = pmesh.shard_batch(t.batch, pmesh.rank(), pmesh.world_size())
     gen = torch.Generator(device=device).manual_seed(seed)
     for i in range(steps):
@@ -212,7 +230,7 @@ def run_synthetic(cfg, device: torch.device, steps: int, seed: int,
         loss, psnr = float(stats["loss"]), float(stats["psnr"])   # waits
         ms = 1000.0 * (time.perf_counter() - t0)
         print(f"step {i}: loss {loss:.5f} psnr {psnr:.2f} {ms:.1f} ms "
-              f"({cfg.N_rand} rays, {device})", flush=True)
+              f"({cfg.N_rand} rays, {device}, step route {t.route})", flush=True)
 
 
 if __name__ == "__main__":

@@ -50,6 +50,8 @@ PRIMARY = {"metric", "value", "unit", "vs_baseline", "windows", "steps_per_windo
            "min", "max"}
 PATCH = {"train_rays_per_sec_patch", "patch_min", "patch_max", "vs_baseline_patch"}
 CARD = {"device", "power_limit"}
+# the port's own: the step's route and the graphs it captured
+ROUTE = {"route", "captures"}
 
 
 def _plain(cfg):
@@ -207,9 +209,10 @@ def test_main_prints_bench_pys_keys(short, capsys, mode):
     out = bench.main(["--device", "cpu", "--tiny", "--cfg_file", CFG])
     lines, last = _last_line(capsys)
     assert last == out
-    want = PRIMARY | CARD | (PATCH if mode == "both" else set())
+    want = PRIMARY | CARD | ROUTE | (PATCH if mode == "both" else set())
     assert set(last) == want
     assert last["device"] == "cpu" and last["power_limit"] is None
+    assert last["route"] == "eager" and last["captures"] == 0
     assert last["unit"] == "rays/s" and last["windows"] == 2 and last["steps_per_window"] == 2
     assert last["metric"] == ("train_patch_rays_per_sec" if mode == "patch"
                               else "train_rays_per_sec")
@@ -312,5 +315,5 @@ def test_bench_runs_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     lines = res.stdout.strip().splitlines()
-    assert lines[-1] == "ok " + str(sorted(PRIMARY | PATCH | CARD))
-    assert set(json.loads(lines[-2])) == PRIMARY | PATCH | CARD
+    assert lines[-1] == "ok " + str(sorted(PRIMARY | PATCH | CARD | ROUTE))
+    assert set(json.loads(lines[-2])) == PRIMARY | PATCH | CARD | ROUTE
