@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``instant_nvr_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--nccl-ranks N]
 
 Phases, each printing one line or more; any failure raises (non-zero exit):
   1. device: the card's name and power limit; TF32 off.
@@ -198,9 +198,30 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      step, rays/s, peak memory, captures, and a traced 5-step window on
      the last turn of each (busy share, device ms a step); each line with
      the card's name and power limit.
+ 16. programs (``eval/mesh.py:CapturedCube``, ``eval/evaluator.py:
+     CapturedLpips``, ``train/compiled.py``'s other step routes): (a) the
+     res-128 cube of phase 8's checkpoint, plain, deformed and with
+     ``tbw``, on both routes: the captured cubes (a warm-up, the capture,
+     a replay) bit-equal to the eager one, ms a cube, the copies a cube
+     (profiler: at most one device-to-host, few pageable host-to-device,
+     none a chunk), peak memory; other weights loaded in place after the
+     capture reach the replay; (b) LPIPS of phase 9's 512^2 items
+     through the evaluator on both routes, bit-equal, ms a call; (c) the
+     full-width MSE and patch steps under ``train.optim`` radam, then
+     sgd, and (d) under ``remat``, 10 steps of each route from the seed-0
+     state (the lr change and RAdam's rectification inside): losses and
+     parameters at phase 15's tolerances, each replay holding the
+     routing's launches (RAdam and SGD keep non-scalar tables: 8
+     segmented and 40 one-hot), 1 capture and 7 replays, then 5 timed and
+     3 traced steps (ms a step, busy share, device ms, peak); then each
+     under ``fix_random``, losses, parameters and moments bit-equal; (e)
+     one NCCL rank through ``train_net --distributed`` under
+     ``fix_random``, captured (its route printed) against ``--eager``:
+     losses, parameters and moments bit-equal.  ``python3 chip_smoke.py
+     --nccl-ranks N`` runs (e) alone on N NCCL ranks, one a card.
 Then one JSON line of kernel numbers (launches: the render, train,
 self-check, patch, evaluate, data-parallel, real-subject, orbax,
-completion, bench and captured phases together, each row also with ``orbax_launches``; a KNN row's times are the render
+completion, bench, captured and programs phases together, each row also with ``orbax_launches``; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
@@ -212,7 +233,9 @@ inputs as ``eval_shape_*``; every row has phase 10's launches in each
 rank, ``dp_launches_per_rank``, phase 13's, ``completion_launches``,
 and phase 14's, ``bench_launches``, with its launches per bench step,
 ``bench_step_launches``, phase 15's, ``captured_launches``, and its
-graphs' launches a replay, ``captured_replay_launches``; the sorted kernel's row, phase 13's only,
+graphs' launches a replay, ``captured_replay_launches``, phase 16's,
+``programs_launches``, and its step graphs' launches a replay,
+``programs_replay_launches``; the sorted kernel's row, phase 13's only,
 has its uniform-keys case with the train step's records beside it, its
 times under the deterministic flag and the summed times of a
 ``fix_random`` patch step's 18 sorted calls),
@@ -2611,6 +2634,7 @@ def completion_slice(dev, knn, scatter):
     from instant_nvr_tpu_torch.tools.make_fixtures import write_orbax_checkpoint
     from instant_nvr_tpu_torch.config import make_cfg
     from instant_nvr_tpu_torch.train import loop, orbax_format
+    from instant_nvr_tpu_torch.train.state import OptaxRAdam
     from instant_nvr_tpu_torch.train.step import table_grad_launches
     root = os.path.join(HERE, "data", "fake_zju_smoke")          # phase 8's subject
     total = {k: 0 for k in ("knn_blend", "knn_topk", "segmented_scatter_add",
@@ -2707,7 +2731,7 @@ def completion_slice(dev, knn, scatter):
         checked["load_s"] = time.perf_counter() - t
         if meta != {"epoch": 0, "step": ORBAX_STEP} or state.step != ORBAX_STEP:
             raise AssertionError(f"packed resume: meta {meta}, step {state.step}")
-        if not isinstance(state.optimizer, torch.optim.RAdam):
+        if not isinstance(state.optimizer, OptaxRAdam):
             raise AssertionError(f"packed resume: {type(state.optimizer).__name__}")
         names = {id(p): n for n, p in state.model.named_parameters()}
         for n, v in state.model.state_dict().items():
@@ -3002,13 +3026,20 @@ def route_run(route, cfg, batch, patch_fn, dev, knn, scatter, steps=CAPTURE_STEP
     return torch.stack(losses).cpu(), state, step, got
 
 
+# the optimizers' moments, as state_bits names them
+MOMENTS = (".exp_avg", ".exp_avg_sq", ".momentum_buffer")
+
+
 def state_bits(state):
-    """Every parameter and moment of ``state``, by name, on the host."""
+    """Every parameter and moment of ``state`` (Adam's and RAdam's two,
+    SGD's momentum buffer), by name, on the host."""
+    import torch
     names = {id(p): n for n, p in state.model.named_parameters()}
     out = {n: p.detach().cpu().clone() for n, p in state.model.named_parameters()}
     for p, st in state.optimizer.state.items():
-        out[names[id(p)] + ".exp_avg"] = st["exp_avg"].cpu().clone()
-        out[names[id(p)] + ".exp_avg_sq"] = st["exp_avg_sq"].cpu().clone()
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                out[f"{names[id(p)]}.{k}"] = v.cpu().clone()
     return out
 
 
@@ -3018,7 +3049,7 @@ def params_agree(label, a, b, lr, steps):
     apart by more than 1e-6)."""
     worst, moved = 0.0, 0
     for k, p in a.items():
-        if k.endswith((".exp_avg", ".exp_avg_sq")):
+        if k.endswith(MOMENTS):
             continue
         d = (p.float() - b[k].float()).abs()
         worst = max(worst, float(d.max()) / lr)
@@ -3314,12 +3345,484 @@ def captured_slice(dev, knn, scatter):
     return counts, per_replay
 
 
-def main() -> int:
+# phase 16: the rest of the JAX package's compiled programs; each step run
+# takes CAPTURE_STEPS steps from the seed-0 state (RAdam's rectification
+# switching on at the sixth, an lr change at the sixth), then timed and
+# traced steps
+PROGRAMS_DIR = os.path.join(HERE, "exps", "chip_smoke_programs")
+PROGRAM_TIMED = 5
+PROGRAM_TRACED = 3
+PROGRAM_VARIANTS = (("radam", {"train": {"optim": "radam"}}),
+                    ("sgd", {"train": {"optim": "sgd"}}),
+                    ("remat", {"remat": True}))
+NCCL_STEPS = 6                # 3 warm-up steps, the capture, 2 replays
+
+
+def program_run(route, cfg, batch, pfn, dev, knn, scatter, timed=True):
+    """``CAPTURE_STEPS`` steps of ``route`` ('eager' or 'captured') from the
+    seed-0 state, step i drawing from a generator seeded i; with ``timed``
+    then ``PROGRAM_TIMED`` steps timed on the host clock (ending in a
+    synchronize) and, on the captured route, ``PROGRAM_TRACED`` in a
+    profiler window.  Returns the
+    losses, the state's bits and the launches after the first
+    ``CAPTURE_STEPS``, the captures and replays then, ms a step, busy
+    share, device ms a step, peak memory and the run's launches."""
     import torch
+    from instant_nvr_tpu_torch import bench
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.tools import profile_eval
+    from instant_nvr_tpu_torch.train.compiled import CapturedStep
+    from instant_nvr_tpu_torch.train.loop import _device_seconds
+    from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
+    mspec, rspec, lw = inb.build_model_spec(cfg), make_render_spec(cfg), make_loss_weights(cfg)
+    # the run's own peak: its model, moments, graph pool and activations
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = bench.new_state(cfg, dev)
+    # the eager route is not traced: its timed steps are its last
+    step = (make_train_step(mspec, rspec, lw, pfn) if route == "eager"
+            else CapturedStep(mspec, rspec, lw, pfn, n_steps=CAPTURE_STEPS
+                              + PROGRAM_TIMED + PROGRAM_TRACED))
+    gen = torch.Generator(device=dev)
+
+    def one(i):
+        gen.manual_seed(i)
+        return step(state, batch, generator=gen)[1]
+
+    def counts():
+        got = launch_counts(knn, scatter)
+        got["sorted_scatter_add"] = scatter.sorted_scatter_add.launches
+        return got
+    reset_counts(knn, scatter)
+    losses = [one(i)["loss"].clone() for i in range(CAPTURE_STEPS)]
+    torch.cuda.synchronize()
+    out = {"losses": torch.stack(losses).cpu(), "bits": state_bits(state),
+           "launches": counts(), "step": step,
+           "optimizer": type(state.optimizer).__name__,
+           "lr": [state.schedule(t) for t in (0, CAPTURE_EP_ITER)],
+           "captured": (getattr(step, "captures", 0), getattr(step, "replays", 0)),
+           "ms": None, "busy": None, "device_ms": None, "top": None}
+    if timed:
+        t0 = time.perf_counter()
+        for i in range(CAPTURE_STEPS, CAPTURE_STEPS + PROGRAM_TIMED):
+            one(i)
+        torch.cuda.synchronize()
+        out["ms"] = 1000 * (time.perf_counter() - t0) / PROGRAM_TIMED
+    if timed and route == "captured":
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(CAPTURE_STEPS + PROGRAM_TIMED,
+                           CAPTURE_STEPS + PROGRAM_TIMED + PROGRAM_TRACED):
+                one(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_s = _device_seconds(prof.events())
+        if dev_s is not None:
+            out.update(busy=dev_s / wall, device_ms=1000 * dev_s / PROGRAM_TRACED,
+                       top=[f"{n[:48]}:{ms / PROGRAM_TRACED:.2f}ms:x{c // PROGRAM_TRACED}"
+                            for n, ms, c in profile_eval.top_kernels(prof, 6)])
+    out.update(peak=torch.cuda.max_memory_allocated() - base, total=counts())
+    return out
+
+
+def fmt_opt(x, spec=".3f"):
+    return "not measured" if x is None else format(x, spec)
+
+
+def programs_training(dev, knn, scatter):
+    """16(c)-(d): the MSE and patch steps under RAdam, SGD and ``remat``
+    (Adam), both routes from one state, then each under ``fix_random``
+    (patch), bit for bit.  Returns the captured runs' launches and each
+    graph's launches a replay, by variant and mode."""
+    import torch
+    from instant_nvr_tpu_torch import bench, train_net
+    from instant_nvr_tpu_torch.config import make_cfg
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
+    from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
+    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    base = make_cfg(CFG).merged({"ep_iter": CAPTURE_EP_ITER})
+    batches = {"mse": (train_net.synthetic_batch(base, dev), None),
+               "patch": (train_net.to_tensors(bench.patch_batch_np(base), dev),
+                         make_patch_loss_fn(base))}
+    smi = nvidia_smi()
+    total, per_replay = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+
+    def check_launches(label, run, routes, knn_per_step):
+        want = {"knn_blend": CAPTURE_STEPS * knn_per_step, "knn_topk": 0,
+                "segmented_scatter_add": CAPTURE_STEPS * routes["segmented"],
+                "onehot_scatter_add": CAPTURE_STEPS * routes["onehot"],
+                "sorted_scatter_add": CAPTURE_STEPS * routes["sorted"]}
+        one = {k: n for k, n in (("knn_blend", knn_per_step),
+                                 ("segmented_scatter_add", routes["segmented"]),
+                                 ("onehot_scatter_add", routes["onehot"]),
+                                 ("sorted_scatter_add", routes["sorted"])) if n}
+        graphs = graph_launches(run["step"]) if "captured" in label else [one]
+        if run["launches"] != want or graphs != [one] or routes["exact"] or (
+                "captured" in label and run["captured"] != (1, CAPTURE_STEPS - 3)):
+            raise AssertionError(f"{label}: launches {run['launches']} != {want}; a replay "
+                                 f"{graphs} != {one}; captures, replays {run['captured']}")
+        return one
+
+    for name, over in PROGRAM_VARIANTS:
+        cfg = base.merged(over)
+        routes = table_grad_launches(inb.build_model_spec(cfg), make_render_spec(cfg))
+        # remat runs the forward, and its knn_blend, again in the backward
+        knn_per_step = 2 if cfg.get("remat", False) else 1
+        for mode, (batch, pfn) in batches.items():
+            t0 = time.perf_counter()
+            e = program_run("eager", cfg, batch, pfn, dev, knn, scatter)
+            c = program_run("captured", cfg, batch, pfn, dev, knn, scatter)
+            check_launches(f"{name} {mode} eager", e, routes, knn_per_step)
+            per_replay[f"{name}_{mode}"] = check_launches(f"{name} {mode} captured", c,
+                                                          routes, knn_per_step)
+            add(c["total"])
+            add(e["total"])
+            rel = float(((c["losses"] - e["losses"]).abs() / e["losses"].abs()).max())
+            if not torch.isfinite(c["losses"]).all() or rel > 1e-3:
+                raise AssertionError(f"{name} {mode}: losses {c['losses'].tolist()} vs eager "
+                                     f"{e['losses'].tolist()} (rtol 1e-3)")
+            worst, moved = params_agree(f"{name} {mode}", c["bits"], e["bits"],
+                                        cfg.train.lr, CAPTURE_STEPS)
+            n_rays = int(batch["ray_o"].shape[0])
+            phase("programs-train", card=repr(smi), variant=name, mode=mode,
+                  optimizer=c["optimizer"], steps=CAPTURE_STEPS, routes=repr(dict(routes)),
+                  lr_steps=[f"{v:.6e}" for v in c["lr"]],
+                  loss_eager=[f"{v:.6f}" for v in e["losses"].tolist()],
+                  loss_captured=[f"{v:.6f}" for v in c["losses"].tolist()],
+                  loss_max_rel_diff=f"{rel:.3e}", param_max_diff_lr=f"{worst:.4f}",
+                  params_differing_1e6=moved, captures_replays=c["captured"],
+                  launches_per_replay=repr(per_replay[f"{name}_{mode}"]),
+                  rays=n_rays, ms_per_step_eager=fmt_opt(e["ms"], ".2f"),
+                  ms_per_step_captured=fmt_opt(c["ms"], ".2f"),
+                  busy_captured=fmt_opt(c["busy"]),
+                  device_ms_per_step_captured=fmt_opt(c["device_ms"]),
+                  top_kernels_captured=repr(c["top"]),
+                  own_peak_mem_GB_eager=f"{e['peak'] / 1e9:.3f}",
+                  own_peak_mem_GB_captured=f"{c['peak'] / 1e9:.3f}",
+                  seconds=f"{time.perf_counter() - t0:.1f}",
+                  tol=repr("loss rtol 1e-3; params <= 2.1 lr a step (phase 6)"))
+            del e, c
+
+        # fix_random: every table gradient through the sorted kernel, both
+        # routes bit for bit
+        fcfg = cfg.merged({"fix_random": True})
+        froutes = table_grad_launches(inb.build_model_spec(fcfg), make_render_spec(fcfg))
+        saved = (torch.are_deterministic_algorithms_enabled(),
+                 torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        try:
+            if not train_net.apply_fix_random(fcfg):
+                raise AssertionError("fix_random not applied")
+            batch, pfn = batches["patch"]
+            e = program_run("eager", fcfg, batch, pfn, dev, knn, scatter, timed=False)
+            c = program_run("captured", fcfg, batch, pfn, dev, knn, scatter, timed=False)
+        finally:
+            torch.use_deterministic_algorithms(saved[0])
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[1:]
+        if set(froutes) != {"sorted"}:
+            raise AssertionError(f"{name} fix_random: routes {froutes}")
+        check_launches(f"{name} fix_random eager", e, froutes, knn_per_step)
+        per_replay[f"{name}_fix_random"] = check_launches(f"{name} fix_random captured", c,
+                                                          froutes, knn_per_step)
+        add(c["total"])
+        add(e["total"])
+        differing = [k for k in c["bits"] if not torch.equal(
+            c["bits"][k].view(torch.uint8), e["bits"][k].view(torch.uint8))]
+        moments = sorted({k.rsplit(".", 1)[1] for k in c["bits"] if k.endswith(MOMENTS)})
+        phase("programs-fix-random", card=repr(smi), variant=name, steps=CAPTURE_STEPS,
+              losses_bit_equal=torch.equal(c["losses"], e["losses"]), tensors=len(c["bits"]),
+              moments=moments, tensors_differing=differing,
+              launches_per_replay=repr(per_replay[f"{name}_fix_random"]),
+              check="losses, every parameter and moment bit-equal, captured vs eager")
+        if not torch.equal(c["losses"], e["losses"]) or differing:
+            raise AssertionError(f"{name} fix_random: captured differs from eager: losses "
+                                 f"{c['losses'].tolist()} vs {e['losses'].tolist()}, "
+                                 f"tensors {differing[:8]}")
+        del e, c
+    assert_workspace_zero("programs steps")
+    return total, per_replay
+
+
+def programs_cube(dev):
+    """16(a): the res-128 cube of phase 8's checkpoint, plain, deformed and
+    with ``tbw``, on both routes: bit-equal, ms a cube, copies (profiler),
+    peak memory; a load of other weights after the capture reaches the
+    replay."""
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch import run
+    from instant_nvr_tpu_torch.datasets.tpose_dataset import TPoseDataset
+    from instant_nvr_tpu_torch.eval import mesh
+    from instant_nvr_tpu_torch.tools import profile_eval
+    from instant_nvr_tpu_torch.train import checkpoint
+    root = os.path.join(HERE, "data", "fake_zju_smoke")
+    cfg = patch_cfg(root, os.path.join(HERE, "exps", "chip_smoke_patch"), epochs=3)
+    mspec, _, model = run.build(cfg, dev, seed=0)
+    checkpoint.load_weights(cfg.trained_model_dir, model)
+    item = TPoseDataset(cfg, "test").get_item(0)
+    if np.asarray(item["tbw"]).ndim != 4:
+        raise AssertionError("the fake subject's test item has no tbw volume")
+    plain = {k: v for k, v in item.items() if k != "tbw"}
+    smi = nvidia_smi()
+    cubes = mesh.CUBES
+
+    def cube(meta, deformed, eager):
+        return mesh.occupancy_grid(cfg, mspec, model, meta, deformed, res=128,
+                                   eager=eager)[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, 1000 * (time.perf_counter() - t0)      # ends in the copy back
+
+    def profiled(fn):
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+        return profile_eval.copies(prof)
+
+    def own_peak(fn):
+        """fn() -> (its output, the memory it allocated at its peak over
+        what was allocated before)"""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    for name, meta, deformed in (("plain", plain, False), ("deformed", plain, True),
+                                 ("tbw", item, False)):
+        (want, eager_ms), eager_peak = own_peak(lambda: timed(lambda: cube(meta, deformed,
+                                                                            True)))
+        c0, r0 = cubes.captures, cubes.replays
+        runs, peak = own_peak(lambda: [timed(lambda: cube(meta, deformed, False))
+                                       for _ in range(3)])
+        caps = (cubes.captures - c0, cubes.replays - r0)
+        equal = [bool(np.array_equal(o, want)) for o, _ in runs]
+        extra = {}
+        if name == "tbw":       # the loop's case: the copies of each route
+            copies = {"eager": profiled(lambda: cube(meta, deformed, True)),
+                      "captured": profiled(lambda: cube(meta, deformed, False))}
+            extra = {"pageable_host_to_device": {
+                k: v.get("Memcpy HtoD (Pageable -> Device)", 0) for k, v in copies.items()},
+                "device_to_host": {k: sum(n for c, n in v.items() if c.startswith("Memcpy DtoH"))
+                                   for k, v in copies.items()},
+                "copies": repr(copies)}
+            if extra["device_to_host"]["captured"] > 1 \
+                    or extra["pageable_host_to_device"]["captured"] > 8:
+                raise AssertionError(f"cube {name}: copies {copies}")
+        if name == "plain":
+            # other weights, loaded in place after the capture: the replay
+            # reads them, as the loop's per-epoch cube reads trained ones
+            trained = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict({k: v * 0.5 if v.is_floating_point() else v
+                                   for k, v in trained.items()})
+            swapped = cube(meta, deformed, False)
+            swapped_eager = cube(meta, deformed, True)
+            model.load_state_dict(trained)
+            extra = {"other_weights_bit_equal": bool(np.array_equal(swapped, swapped_eager)),
+                     "other_weights_differ": not np.array_equal(swapped, want)}
+            if not all(extra.values()):
+                raise AssertionError(f"cube after a weight load: {extra}")
+            del trained
+        phase("programs-cube", card=repr(smi), case=name, res=128, deformed=deformed,
+              tbw=name == "tbw", ms_eager=f"{eager_ms:.1f}",
+              ms_captured=[f"{t:.1f}" for _, t in runs], captures_replays=caps,
+              bit_equal=equal, own_peak_mem_GB_eager=f"{eager_peak / 1e9:.3f}",
+              own_peak_mem_GB_captured=f"{peak / 1e9:.3f}",
+              occupancy_range=f"[{want.min():.4f},{want.max():.4f}]", **extra)
+        if not all(equal) or caps != (1, 2):
+            raise AssertionError(f"cube {name}: bit-equal {equal}, captures/replays {caps}")
+
+
+def programs_lpips(dev):
+    """16(b): LPIPS of phase 9's 512^2 items (its comparison PNGs) through
+    the evaluator on both routes: bit-equal, ms a call."""
+    import glob
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.datasets.image_ops import read_image
+    from instant_nvr_tpu_torch.eval import evaluator
+    from instant_nvr_tpu_torch.tools import profile_eval
+    comp = os.path.join(HERE, "exps", "chip_smoke_patch", "comparison")
+    gts = sorted(glob.glob(os.path.join(comp, "*_gt.png")))[:2]
+    if len(gts) != 2:
+        raise AssertionError(f"phase 9's comparison PNGs: {gts}")
+    pairs = [tuple(read_image(p).astype(np.float32) / 255.0 for p in
+                   (gt.replace("_gt.png", ".png"), gt)) for gt in gts]
+    if pairs[0][0].shape != (512, 512, 3):
+        raise AssertionError(f"item side {pairs[0][0].shape}")
+    evs = {"eager": evaluator.Evaluator(device=dev),
+           "captured": evaluator.Evaluator(device=dev, captured=True)}
+    lp = evaluator.LPIPS
+    c0, r0 = lp.captures, lp.replays
+    vals = {k: [[ev._lpips(*pair) for _ in range(3)] for pair in pairs]
+            for k, ev in evs.items()}
+    ms = {}
+    for k, ev in evs.items():
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ev._lpips(*pairs[0])               # ends in the host read of the scalar
+            ts.append(1000 * (time.perf_counter() - t0))
+        ms[k] = sorted(ts)
+    copies = {}
+    for k, ev in evs.items():
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            ev._lpips(*pairs[0])
+        copies[k] = profile_eval.copies(prof)
+    equal = [all(v == vals["eager"][i][0] for v in vals["captured"][i] + vals["eager"][i])
+             for i in range(len(pairs))]
+    phase("programs-lpips", card=repr(nvidia_smi()), items=len(pairs), side=512,
+          lpips=[f"{v[0]:.6f}" for v in vals["eager"]], bit_equal=equal,
+          captures_replays=(lp.captures - c0, lp.replays - r0),
+          ms_eager=[f"{t:.2f}" for t in ms["eager"]],
+          ms_captured=[f"{t:.2f}" for t in ms["captured"]], copies=repr(copies))
+    if not all(equal):
+        raise AssertionError(f"LPIPS captured vs eager: {vals}")
+
+
+def programs_nccl(world=1):
+    """16(e): ``train_net --distributed`` on ``world`` NCCL ranks (one a
+    card), captured and ``--eager``, ``NCCL_STEPS`` patch steps of phase
+    8's subject under ``fix_random`` each, the two jobs at once (their
+    processes share the cards, so their ms a step are not timings of one
+    job): the routes printed, the losses, parameters and moments of the
+    two runs bit-equal.  Returns the captured run's rank-0 launches."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    from instant_nvr_tpu_torch.tools import multiprocess_check as mc
+    from instant_nvr_tpu_torch.train.checkpoint import STATE_FILE
+    root = os.path.join(HERE, "data", "fake_zju_smoke")
+    opts = []
+    for split in ("train_dataset", "val_dataset", "test_dataset"):
+        opts += [f"{split}.data_root", root, f"{split}.ann_file",
+                 os.path.join(root, "annots.npy")]
+    opts += ["smpl_meta", os.path.join(root, "smpl-meta"), "num_train_frame", str(FRAMES)]
+    def job(route, flags):
+        exp = os.path.join(PROGRAMS_DIR, f"nccl{world}_{route}")
+        work = os.path.join(PROGRAMS_DIR, f"nccl{world}_{route}_run")
+        for d in (exp, work):
+            shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(work)
+        torch.save({"module": "train_net", "argv": [
+            "--cfg_file", os.path.join(HERE, "configs", "inb", "inb_fake.yaml"),
+            "--device", "cuda", "--distributed", "--no_resume", *flags, *opts,
+            "ep_iter", str(NCCL_STEPS), "train.epoch", "1", "eval_ep", "100",
+            "fix_random", "True", "result_dir", exp,
+            "trained_model_dir", os.path.join(exp, "model"),
+            "record_dir", os.path.join(exp, "record")]}, os.path.join(work, "inputs.pt"))
+        t0 = time.perf_counter()
+        ranks = mc.launch("cli", world, work, device="cuda", backend=None, timeout=600)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(work, "rank0.log")) as f:
+            printed = [ln.strip() for ln in f if ln.startswith("step route:")]
+        payload = torch.load(os.path.join(exp, "model", "latest", STATE_FILE),
+                             map_location="cpu", weights_only=True)
+        return ranks, printed, payload, wall
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(job, "captured", []), pool.submit(job, "eager", ["--eager"])]
+        (rc, pc, sc, wc), (re_, pe, se, we) = [f.result() for f in futures]
+    want_route = {"captured": "step route: captured", "eager": "step route: eager (--eager)"}
+    differing = [k for k, v in sc["model"].items()
+                 if not torch.equal(v.view(torch.uint8), se["model"][k].view(torch.uint8))]
+    moments = 0
+    for i, st in sc["optimizer"]["state"].items():
+        for k, v in st.items():
+            if torch.is_tensor(v) and v.ndim:
+                moments += 1
+                if not torch.equal(v.view(torch.uint8),
+                                   se["optimizer"]["state"][i][k].view(torch.uint8)):
+                    differing.append(f"state {i}.{k}")
+    losses_equal = all(c["losses"] == e["losses"] for c, e in zip(rc, re_))
+    phase("programs-nccl", card=repr(nvidia_smi()), ranks=world,
+          backend=rc[0]["backend"], entry="train_net --distributed",
+          config="inb_fake (inb_377 widths), patch LPIPS, fix_random", steps=NCCL_STEPS,
+          routes_printed=[pc, pe], losses_captured=[f"{x:.6f}" for x in rc[0]["losses"]],
+          losses_eager=[f"{x:.6f}" for x in re_[0]["losses"]], losses_bit_equal=losses_equal,
+          parameters=len(sc["model"]), moments=moments, tensors_differing=differing[:8],
+          launches=repr(rc[0]["launches"]), wall_s_at_once=[f"{wc:.1f}", f"{we:.1f}"])
+    if pc != [want_route["captured"]] or pe != [want_route["eager"]] \
+            or rc[0]["backend"] != "nccl" or not losses_equal or differing \
+            or not np.isfinite(rc[0]["losses"]).all() or len(rc[0]["losses"]) != NCCL_STEPS:
+        raise AssertionError(f"NCCL x{world}: routes {pc} / {pe}, losses "
+                             f"{rc[0]['losses']} / {re_[0]['losses']}, differing "
+                             f"{differing[:8]}")
+    return rc[0]["launches"]
+
+
+def programs_slice(dev, knn, scatter):
+    """Phase 16: the cube, the eval LPIPS, and the RAdam, SGD, remat and
+    NCCL train steps captured against their eager routes.  Returns (the
+    phase's launches, each step graph's launches a replay)."""
+    import shutil
+    shutil.rmtree(PROGRAMS_DIR, ignore_errors=True)
+    os.makedirs(PROGRAMS_DIR)
+    reset_counts(knn, scatter)
+    programs_cube(dev)
+    programs_lpips(dev)
+    counts = launch_counts(knn, scatter)
+    if any(counts.values()):
+        raise AssertionError(f"the cube and LPIPS launched kernels: {counts}")
+    total, per_replay = programs_training(dev, knn, scatter)
+    for k, v in programs_nccl().items():
+        total[k] = total.get(k, 0) + v
+    return total, per_replay
+
+
+def nccl_ranks_only(world: int) -> int:
+    """``python3 chip_smoke.py --nccl-ranks N``: only phase 16(e), on N
+    NCCL ranks, one a card (N cards), after the kernels' build and phase
+    8's subject."""
+    import torch
+    from instant_nvr_tpu_torch import cuda_build
+    from instant_nvr_tpu_torch.datasets import jpeg
+    from instant_nvr_tpu_torch.datasets.fake_zju import write_fake_dataset
+    from instant_nvr_tpu_torch.utils import native
+    if torch.cuda.device_count() < world:
+        raise RuntimeError(f"--nccl-ranks {world}: {torch.cuda.device_count()} cards")
+    kind = torch.cuda.get_device_name(0)
+    phase("device", name=repr(kind), count=torch.cuda.device_count(),
+          nvidia_smi=repr(nvidia_smi()), torch=torch.__version__, cuda=torch.version.cuda)
+    t0 = time.perf_counter()
+    cuda_build.build_libraries()            # once, before the ranks load them
+    native.load()
+    jpeg.load()
+    write_fake_dataset(os.path.join(HERE, "data", "fake_zju_smoke"), n_frames=FRAMES,
+                       n_views=3, n_verts=2000, H=512, W=512, supersample=1)
+    phase("build", kernels=len(cuda_build.KERNELS), seconds=f"{time.perf_counter() - t0:.2f}")
+    launches = programs_nccl(world)
+    print(json.dumps({"nccl_ranks": world, "rank0_launches": launches}))
+    print(nvidia_smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import torch
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this smoke run needs "
               "a CUDA card", file=sys.stderr)
         return 1
+    if argv:
+        if len(argv) != 2 or argv[0] != "--nccl-ranks":
+            print("usage: python3 chip_smoke.py [--nccl-ranks N]", file=sys.stderr)
+            return 2
     # phase 13c's fix_random runs: cuBLAS reads its workspace setting once,
     # at its first handle, so it is set here as train_net's fix_random sets
     # it before its first step
@@ -3330,6 +3833,8 @@ def main() -> int:
     if os.path.dirname(os.path.dirname(os.path.abspath(
             instant_nvr_tpu_torch.__file__))) != HERE:
         raise RuntimeError("instant_nvr_tpu_torch must come from this checkout")
+    if argv:
+        return nccl_ranks_only(int(argv[1]))
     from instant_nvr_tpu_torch.config import make_cfg
     from instant_nvr_tpu_torch.eval.runner import AutoBudgetRenderer, eval_chunk
     from instant_nvr_tpu_torch.ops import knn, scatter
@@ -3501,6 +4006,14 @@ def main() -> int:
           seconds=f"{time.perf_counter() - t0:.1f}", launches=repr(captured_launches))
     counts = {k: v + captured_launches.get(k, 0) for k, v in counts.items()}
 
+    # 16. the cube, the eval LPIPS, and the RAdam, SGD, remat and NCCL steps
+    #     captured against their eager routes
+    t0 = time.perf_counter()
+    programs_launches, programs_replay = programs_slice(dev, knn, scatter)
+    phase("programs-slice", card=repr(nvidia_smi()),
+          seconds=f"{time.perf_counter() - t0:.1f}", launches=repr(programs_launches))
+    counts = {k: v + programs_launches.get(k, 0) for k, v in counts.items()}
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -3586,6 +4099,11 @@ def main() -> int:
         r["captured_launches"] = captured_launches.get(r["name"], 0)
         r["captured_replay_launches"] = {m: g.get(r["name"], 0)
                                          for m, g in per_replay.items()}
+        # phase 16's, and its step graphs' launches a replay (RAdam, SGD,
+        # remat; MSE, patch, fix_random patch)
+        r["programs_launches"] = programs_launches.get(r["name"], 0)
+        r["programs_replay_launches"] = {m: g.get(r["name"], 0)
+                                         for m, g in programs_replay.items()}
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

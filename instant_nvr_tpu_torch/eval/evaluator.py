@@ -9,7 +9,10 @@ written as PNGs and the metrics accumulated.  ``summarize`` writes
 package's dict layout ({'mse', 'psnr', 'ssim', 'lpips'}).
 
 LPIPS is :func:`~instant_nvr_tpu_torch.models.lpips.lpips_distance` on the
-evaluator's device; SSIM is the numpy/scipy ``ssim_skimage``.  The PNGs are
+evaluator's device, on :func:`lpips_route`'s route: on the card a CUDA
+graph per image size (:class:`CapturedLpips`, the JAX package's
+``_lpips_jit``); SSIM is the numpy/scipy ``ssim_skimage`` on the host, as
+in JAX.  The PNGs are
 written by ``datasets/image_ops.write_png`` in RGB order: the pixels cv2
 writes from the JAX package's BGR-flipped arrays.
 """
@@ -24,6 +27,7 @@ import torch
 from ..datasets.image_ops import write_png
 from ..models.lpips import lpips_distance
 from ..ops.ssim import ssim_skimage
+from ..train import compiled
 
 
 def psnr_metric(img_pred: np.ndarray, img_gt: np.ndarray) -> float:
@@ -47,11 +51,51 @@ def bounding_rect(mask: np.ndarray) -> Tuple[int, int, int, int]:
     return x, y, int(xs.max()) - x + 1, int(ys.max()) - y + 1
 
 
+def lpips_route(device, eager: bool = False) -> compiled.Route:
+    """The eval LPIPS's route: ``captured`` (:class:`CapturedLpips`) on a
+    CUDA device unless ``eager``; ``eager`` with its reason otherwise."""
+    return compiled.program_route(device, eager)
+
+
+class CapturedLpips(compiled.CapturedProgram):
+    """:func:`lpips_distance` as CUDA graphs, one per static key (the image
+    size, the weights file, the device), the two images its static inputs;
+    the JAX package's ``_lpips_jit`` compiles once per image size as well.
+    A call copies the two host images into the inputs; the first call of a
+    key runs eagerly on the side stream (the warm-up: the VGG weights and
+    constants, cuDNN's handles and workspace), the second captures, and
+    each call replays (:class:`~..train.compiled.CapturedProgram`).  Returns
+    the graph's 0-d output: read it before the next call.  Refuses a
+    device other than CUDA."""
+
+    def __call__(self, img_pred: torch.Tensor, img_gt: torch.Tensor,
+                 weights_path: str, device) -> torch.Tensor:
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise RuntimeError(f"a captured LPIPS runs on a CUDA device, not {device}; "
+                               f"eager=True runs it on the CPU")
+        if device.index is None:        # one key for "cuda" and "cuda:<current>"
+            device = torch.device("cuda", torch.cuda.current_device())
+
+        def fn(st):
+            with torch.no_grad():
+                return {"lpips": lpips_distance(st["images"]["pred"], st["images"]["gt"],
+                                                weights_path)}
+        return self.run((tuple(img_pred.shape), weights_path, device),
+                        {"images": {"pred": img_pred, "gt": img_gt}}, device, fn)["lpips"]
+
+
+# the eval LPIPS graphs of this process: one per image size, as the JAX
+# package keeps its jitted programs
+LPIPS = CapturedLpips()
+
+
 class Evaluator:
     def __init__(self, result_dir: str = "", lpips_weights: str = "",
                  save_images: bool = True, eval_part: str = "",
                  partnames=None, test_full: bool = True,
-                 device: torch.device = torch.device("cpu")):
+                 device: torch.device = torch.device("cpu"),
+                 captured: bool = False):
         self.result_dir = result_dir
         self.lpips_weights = lpips_weights
         self.save_images = save_images and bool(result_dir)
@@ -59,12 +103,17 @@ class Evaluator:
         self.partnames = partnames or []
         self.test_full = test_full
         self.device = device
+        self.captured = captured        # LPIPS through CapturedLpips (LPIPS)
         self.mse, self.psnr, self.ssim, self.lpips = [], [], [], []
 
     def _lpips(self, img_pred: np.ndarray, img_gt: np.ndarray) -> float:
-        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        """LPIPS of two host images: one read of the scalar on the host."""
+        t = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+        if self.captured:
+            return float(LPIPS(t(img_pred), t(img_gt), self.lpips_weights, self.device))
         with torch.no_grad():
-            return float(lpips_distance(t(img_pred), t(img_gt), self.lpips_weights))
+            return float(lpips_distance(t(img_pred).to(self.device),
+                                        t(img_gt).to(self.device), self.lpips_weights))
 
     def evaluate(self, rgb_pred: np.ndarray, rgb_gt: np.ndarray,
                  mask_at_box: np.ndarray, H: int, W: int,

@@ -30,7 +30,7 @@ from ..models import inb
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import TELEMETRY_KEYS, RenderSpec, render_rays
 from ..train import compiled
-from .evaluator import Evaluator
+from .evaluator import Evaluator, lpips_route
 
 RAY_KEYS = ("ray_o", "ray_d", "near", "far")
 MAP_KEYS = ("rgb_map", "acc_map")
@@ -72,7 +72,7 @@ def make_chunked_renderer(mspec: inb.ModelSpec, rspec: RenderSpec,
     return render_image
 
 
-class CapturedFrame:
+class CapturedFrame(compiled.CapturedProgram):
     """:func:`make_chunked_renderer`'s ``render_image`` as CUDA graphs,
     one per static key: the padded ray count (the power-of-two buckets of
     :func:`padded_chunks`) and the meta's keys, shapes and dtypes (the
@@ -81,15 +81,14 @@ class CapturedFrame:
     (host arrays straight from the host), the first frame of a key renders
     eagerly on a side stream (the warm-up: kernels, constants, handles),
     the second captures every chunk and the worst-chunk telemetry into one
-    graph, and each later one replays it.  The outputs are the graph's
-    static tensors: read them before the next frame.  Refuses a model off
-    the card."""
+    graph, and each later one replays it
+    (:class:`~..train.compiled.CapturedProgram`).  The outputs are the
+    graph's static tensors: read them before the next frame.  Refuses a
+    model off the card."""
 
     def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, chunk: int):
+        super().__init__()
         self.render_image = make_chunked_renderer(mspec, rspec, chunk)
-        self.graphs: Dict[tuple, compiled.Graph] = {}
-        self.captures = 0
-        self.replays = 0
 
     def __call__(self, model: inb.InbModel, rays: Dict[str, torch.Tensor],
                  meta: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -97,27 +96,11 @@ class CapturedFrame:
         if device.type != "cuda":
             raise RuntimeError(f"a captured frame renders on a CUDA device, not "
                                f"{device}; eager=True renders on the CPU")
-        inputs = {"rays": rays, "meta": meta}
         # the model is a static input too: its parameters' addresses
         key = (id(model), compiled.signature(rays), compiled.signature(meta))
-        g = self.graphs.get(key)
-        if g is None:
-            g = self.graphs[key] = compiled.Graph(inputs, device)
-            g.model = model             # keeps id(model) this model's
-        g.fill(inputs)
-
-        def run():
-            return self.render_image(model, g.inputs["rays"], g.inputs["meta"])
-
-        if not g.warm:
-            g.warm = 1
-            return compiled.on_side_stream(run, compiled.side_stream(device), device)
-        if g.graph is None:
-            g.graph, g.out, g.launches = compiled.capture(run, compiled.side_stream(device))
-            self.captures += 1
-        compiled.replay(g.graph, g.launches)
-        self.replays += 1
-        return g.out
+        return self.run(key, {"rays": rays, "meta": meta}, device,
+                        lambda st: self.render_image(model, st["rays"], st["meta"]),
+                        holds=model)
 
 
 def padded_chunks(n: int, chunk: int) -> int:
@@ -264,12 +247,7 @@ def budgets_path(cfg) -> str:
 def frame_route(device, eager: bool = False) -> compiled.Route:
     """The eval frame's route: ``captured`` (:class:`CapturedFrame`) on a
     CUDA device unless ``eager``; ``eager`` with its reason otherwise."""
-    if eager:
-        return compiled.Route("eager", "--eager")
-    if torch.device(device).type != "cuda":
-        return compiled.Route("eager", f"CUDA graphs need a CUDA device, not "
-                                       f"{torch.device(device).type}")
-    return compiled.Route("captured")
+    return compiled.program_route(device, eager)
 
 
 def evaluate_dataset(cfg, mspec: inb.ModelSpec, rspec: RenderSpec,
@@ -297,15 +275,16 @@ def evaluate_dataset(cfg, mspec: inb.ModelSpec, rspec: RenderSpec,
     renderer = AutoBudgetRenderer(mspec, rspec, eval_chunk(cfg),
                                   persist_path=budgets_path(cfg),
                                   captured=route.name == "captured")
+    lpips = lpips_route(device, eager)
     if device.type == "cuda":
-        print(f"eval frame route: {route}", flush=True)
+        print(f"eval frame route: {route}; eval LPIPS route: {lpips}", flush=True)
     evaluator = Evaluator(result_dir=cfg.result_dir,
                           lpips_weights=cfg.get("lpips_weights", ""),
                           save_images=save_images,
                           eval_part=cfg.get("eval_part", ""),
                           partnames=list(mspec.partnames),
                           test_full=cfg.get("test_full", True),
-                          device=device)
+                          device=device, captured=lpips.name == "captured")
     timings = []
     for idx in indices:
         t0 = time.time()

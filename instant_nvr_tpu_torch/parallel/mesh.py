@@ -126,6 +126,11 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def backend() -> str | None:
+    """The process group's backend (``nccl``, ``gloo``), None without one."""
+    return dist.get_backend() if dist.is_available() and dist.is_initialized() else None
+
+
 def rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 

@@ -29,7 +29,9 @@ and a missing card is an error, never a silent CPU run.  ``--distributed``
 splits the items over the ranks: NCCL on ``cuda``, Gloo on ``cpu``; rank
 0 writes the metrics of every item.  On the card the frames of evaluate,
 vis, bullet, network and render are CUDA graphs (``eval/runner.py:
-CapturedFrame``); ``--eager`` renders them op by op.
+CapturedFrame``), and so are the LPIPS of evaluate and vis
+(``eval/evaluator.py:CapturedLpips``) and the cube of prune, tmesh and
+tdmesh (``eval/mesh.py:CapturedCube``); ``--eager`` runs them op by op.
 """
 from __future__ import annotations
 
@@ -56,8 +58,10 @@ def parse_args(argv=None):
                    help="one rank of a torch.distributed evaluation "
                         "(torchrun's environment): NCCL on cuda, Gloo on cpu")
     p.add_argument("--eager", action="store_true",
-                   help="render frames op by op from Python, not as captured "
-                        "CUDA graphs (evaluate, vis, bullet, network, render)")
+                   help="run op by op from Python, not as captured CUDA graphs: "
+                        "the frames of evaluate, vis, bullet, network and render, "
+                        "the LPIPS of evaluate and vis, the cube of prune, "
+                        "tmesh and tdmesh")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -266,25 +270,27 @@ def run_exportpart(cfg, device: torch.device, seed: int) -> str:
     return out
 
 
-def run_prune(cfg, device: torch.device, seed: int) -> np.ndarray:
+def run_prune(cfg, device: torch.device, seed: int, eager: bool = False) -> np.ndarray:
     """The occupancy cube (res 128) of the test split's first item ->
-    ``result_dir/latest.npy``."""
+    ``result_dir/latest.npy``; on ``cube_route``'s route."""
     from .datasets.tpose_dataset import TPoseDataset
     from .eval.mesh import occupancy_grid
     mspec, _, model = load(cfg, device, seed)
     item = TPoseDataset(cfg, "test").get_item(0)
-    occ, _ = occupancy_grid(cfg, mspec, model, item, deformed=False, res=128)
+    occ, _ = occupancy_grid(cfg, mspec, model, item, deformed=False, res=128,
+                            eager=eager)
     os.makedirs(cfg.result_dir, exist_ok=True)
     np.save(os.path.join(cfg.result_dir, "latest.npy"), occ)
     print(f"wrote {cfg.result_dir}/latest.npy")
     return occ
 
 
-def run_tmesh(cfg, device: torch.device, seed: int, deformed: bool = False):
+def run_tmesh(cfg, device: torch.device, seed: int, deformed: bool = False,
+              eager: bool = False):
     from .eval.mesh import extract_mesh
     mspec, _, model = load(cfg, device, seed)
     out = os.path.join(cfg.result_dir, "tdmesh" if deformed else "tmesh")
-    return extract_mesh(cfg, mspec, model, out, deformed=deformed)
+    return extract_mesh(cfg, mspec, model, out, deformed=deformed, eager=eager)
 
 
 DISPATCH = {
@@ -296,14 +302,15 @@ DISPATCH = {
     "prune": run_prune,
     "exportdecoder": run_exportdecoder,
     "exportpart": run_exportpart,
-    "tmesh": lambda c, d, s: run_tmesh(c, d, s, deformed=False),
-    "tdmesh": lambda c, d, s: run_tmesh(c, d, s, deformed=True),
+    "tmesh": lambda c, d, s, **kw: run_tmesh(c, d, s, deformed=False, **kw),
+    "tdmesh": lambda c, d, s, **kw: run_tmesh(c, d, s, deformed=True, **kw),
 }
 
 
 SHARDED = ("evaluate", "vis")
-# the types whose frames take --eager (the rest render no frame)
-FRAME_TYPES = ("evaluate", "vis", "bullet", "network")
+# the types that run a captured program (frames, LPIPS, the cube), and so
+# take --eager
+CAPTURED_TYPES = ("evaluate", "vis", "bullet", "network", "prune", "tmesh", "tdmesh")
 
 
 def main(argv=None) -> None:
@@ -339,7 +346,7 @@ def _main(args, device) -> None:
         # checkpoint was trained at
         from .models.budget import apply_auto_budget
         cfg = apply_auto_budget(cfg)
-    kwargs = {"eager": args.eager} if args.type in FRAME_TYPES else {}
+    kwargs = {"eager": args.eager} if args.type in CAPTURED_TYPES else {}
     DISPATCH[args.type](cfg, device, args.seed, **kwargs)
 
 

@@ -124,11 +124,40 @@ def _counts():
             "onehot_scatter_add": scatter.onehot_scatter_add.launches}
 
 
+def body_step(mspec, rspec, lw, patch_loss_fn=None):
+    """``train/step.py:make_step_body``'s body as a step, run eagerly: what
+    a captured step replays, collectives included, on a group that cannot
+    capture (Gloo); its update read from a device schedule."""
+    import torch
+    from instant_nvr_tpu_torch.parallel import mesh as pmesh
+    from instant_nvr_tpu_torch.train.state import DeviceSchedule
+    from instant_nvr_tpu_torch.train.step import draw_render, make_step_body
+    body = make_step_body(mspec, rspec, lw, patch_loss_fn)
+    held = {}
+
+    def step(state, batch, generator=None, draws=None):
+        dev = batch["ray_o"].device
+        if not held:
+            held["sched"] = DeviceSchedule(state.optimizer, state.schedule,
+                                           state.step + 64, dev)
+            held["dstep"] = torch.full((), state.step, dtype=torch.int64, device=dev)
+        if draws is None:
+            draws = draw_render(mspec, rspec, batch["ray_o"].shape[0] * pmesh.world_size(),
+                                generator, dev)
+        stats = body(state, batch, draws, held["sched"], held["dstep"])
+        state.optimizer.advance_steps()
+        state.step += 1
+        return state, stats
+
+    return step
+
+
 def case_step(args: dict, dev, workdir: str = "") -> dict:
     """``args["steps"]`` train steps of ``args["cfg"]`` from
     ``args["state"]`` (a state dict; else random weights from ``seed``) on
     this rank's slice of ``args["batch"]`` (host arrays of the whole
-    batch): the first with ``args["draws"]`` when given (the whole batch's),
+    batch), by the eager step (by :func:`body_step` with ``args["body"]``):
+    the first with ``args["draws"]`` when given (the whole batch's),
     else with the generator's draws from ``seed``, the rest from the
     generator seeded by ``seed`` + step.  Returns the first step's stats, gradients and
     updated parameters (host tensors), every step's loss and ms, whether
@@ -156,8 +185,8 @@ def case_step(args: dict, dev, workdir: str = "") -> dict:
     else:
         model = inb.init_params(mspec, torch.Generator(device=dev).manual_seed(seed), dev)
     state = create_train_state(cfg, model)
-    step = make_train_step(mspec, rspec, lw,
-                           make_patch_loss_fn(cfg) if lw.use_patch else None)
+    step = (body_step if args.get("body") else make_train_step)(
+        mspec, rspec, lw, make_patch_loss_fn(cfg) if lw.use_patch else None)
     batch = pmesh.shard_batch(args["batch"], pmesh.rank(), pmesh.world_size())
     batch = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in batch.items()}
     cuda = dev.type == "cuda"

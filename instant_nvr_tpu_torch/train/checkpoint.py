@@ -34,7 +34,7 @@ import torch
 from .. import bridge
 from ..parallel import mesh as pmesh
 from . import orbax_format
-from .state import AdamBf16Mu
+from .state import AdamBf16Mu, OptaxSGD
 
 MAX_KEPT = 20
 STATE_FILE = "state.pt"
@@ -187,7 +187,7 @@ def optimizer_state_from_jax(opt_state, model, optimizer) -> Dict:
         raise ValueError(f"{path}: optax state "
                          f"{sorted(fields) if fields else type(node).__name__} "
                          f"has no counterpart in the port's optimizer")
-    sgd = isinstance(optimizer, torch.optim.SGD)
+    sgd = isinstance(optimizer, (torch.optim.SGD, OptaxSGD))
     want = {"trace"} if sgd else {"count", "mu", "nu"}
     if len(moments) != 1 or set(moments[0][1]) != want:
         raise ValueError(f"opt_state: states {[p for p, _ in moments]} do not give the "

@@ -1,13 +1,19 @@
 """The port's counterpart of the JAX package's compiled programs: the train
 step as a CUDA graph (``torch.cuda.CUDAGraph``), captured once per static
 key and replayed (``instant_nvr_tpu/train/loop.py:186``'s ``jax.jit`` of
-``make_train_step``).
+``make_train_step``), for every optimizer, under ``remat`` and across NCCL
+ranks.  The other programs capture through the same machinery
+(:func:`capture`, :func:`replay`, :func:`side_stream`, :class:`Graph`):
+the eval frame (``eval/runner.py:CapturedFrame``), the occupancy cube
+(``eval/mesh.py:CapturedCube``) and the eval LPIPS
+(``eval/evaluator.py:CapturedLpips``); :func:`program_route` is their
+route.
 
 :func:`step_route` chooses, before a run, between this route
 (``captured``) and the eager step of ``train/step.py:make_train_step``
 (``eager``, with its reason); the loop, ``train_net`` and ``bench`` print
 it.  Nothing falls back: a capture or replay that fails raises, and
-:class:`CapturedStep` refuses a CPU device.
+:class:`CapturedStep` refuses a CPU device and a Gloo group.
 
 A :class:`CapturedStep` keys its graphs as jit would retrace: the model
 and render specs and loss weights it was made with, and the batch's keys,
@@ -27,7 +33,12 @@ shapes and dtypes (the budgets follow from its ray count).  For each key:
     replay raises if the parameters or the optimizer's moments are no
     longer the tensors the graph captured (:func:`held_tensors`).
 
-The optimizer update reads its rate and bias corrections from a
+Across NCCL ranks every rank makes the same calls, so each warms up and
+captures at the same step; the warm-up runs on the side stream, and so
+do its collectives (the gradient all-reduce, the counts' and the stats'),
+which the capture then records.
+
+The optimizer update reads its per-step scalars from a
 :class:`~.state.DeviceSchedule` at a device step counter that follows
 ``state.step`` (set from it whenever they differ, as after a resume);
 ``state.step`` and the optimizer's host step counts advance on the host.
@@ -49,7 +60,7 @@ from ..models import inb
 from ..ops import knn, scatter
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import RenderSpec
-from .state import DeviceSchedule, OptaxAdam, TrainState
+from .state import DEVICE_OPTIMIZERS, DeviceSchedule, TrainState
 from .step import LossWeights, PatchLossFn, draw_render, make_step_body
 
 WARMUP_STEPS = 3
@@ -156,32 +167,39 @@ class Route(NamedTuple):
         return self.name + (f" ({self.reason})" if self.reason else "")
 
 
-def step_route(cfg, device, eager: bool = False,
-               world: Optional[int] = None) -> Route:
+def step_route(cfg, device, eager: bool = False, world: Optional[int] = None,
+               backend: Optional[str] = None) -> Route:
     """The train step's route for ``cfg`` on ``device``, chosen before the
-    run: ``captured`` on a CUDA device for Adam (float32 or bfloat16 first
-    moment) on one process without ``--detect_anomaly`` or ``remat``;
-    otherwise ``eager`` with its reason.  ``eager`` forces the eager route
-    (``--eager``); ``world`` defaults to the process group's size."""
+    run: ``captured`` on a CUDA device, for every optimizer, under
+    ``remat`` and across ranks on NCCL (whose collectives a graph
+    captures); ``eager`` with its reason for ``--eager`` (``eager``), a CPU
+    device, ranks on Gloo and ``--detect_anomaly``.  ``world`` and
+    ``backend`` default to the process group's."""
     device = torch.device(device)
     world = pmesh.world_size() if world is None else world
-    optim = cfg.train.get("optim", "adam")
+    backend = pmesh.backend() if backend is None else backend
     if eager:
         return Route("eager", "--eager")
     if device.type != "cuda":
         return Route("eager", f"CUDA graphs need a CUDA device, not {device.type}")
-    if world > 1:
-        return Route("eager", f"--distributed over {world} ranks: the gradient "
-                              f"all-reduce runs eagerly")
-    if optim != "adam":
-        return Route("eager", f"optim {optim}: only Adam has an update read from "
-                              f"the device")
+    if world > 1 and backend != "nccl":
+        return Route("eager", f"--distributed over {world} ranks on {backend}: "
+                              f"only NCCL's collectives can be captured")
     if torch.is_anomaly_enabled():
         return Route("eager", "--detect_anomaly: anomaly mode checks each op "
                               "on the host")
-    if cfg.get("remat", False):
-        return Route("eager", "remat: torch.utils.checkpoint reruns the forward "
-                              "from Python in the backward")
+    return Route("captured")
+
+
+def program_route(device, eager: bool = False) -> Route:
+    """The route of a captured eval program (the frame, the cube, the eval
+    LPIPS): ``captured`` on a CUDA device unless ``eager``; ``eager`` with
+    its reason otherwise."""
+    if eager:
+        return Route("eager", "--eager")
+    if torch.device(device).type != "cuda":
+        return Route("eager", f"CUDA graphs need a CUDA device, not "
+                              f"{torch.device(device).type}")
     return Route("captured")
 
 
@@ -212,10 +230,53 @@ class Graph:
         self.out: Dict[str, torch.Tensor] = {}
         self.launches: Launches = ()
         self.held: tuple = ()
+        self.holds = None           # an eval program's model, whose id keys it
 
     def fill(self, inputs: Dict[str, Dict[str, torch.Tensor]]) -> None:
         for name, d in inputs.items():
             fill(self.inputs[name], d)
+
+
+class CapturedProgram:
+    """The graphs of a captured eval program (the frame, the cube, the
+    LPIPS), one :class:`Graph` per static key: a call fills the key's
+    static inputs; the key's first call runs eagerly on the side stream
+    (the warm-up: kernels, constants, handles), the second captures and
+    replays, each later one replays.  With ``max_graphs`` the keys used
+    last keep their graphs (and what each holds), the older ones are
+    dropped."""
+
+    def __init__(self, max_graphs: Optional[int] = None):
+        self.graphs: Dict[tuple, Graph] = {}
+        self.max_graphs = max_graphs
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, key: tuple, inputs: Dict[str, Dict[str, torch.Tensor]], device,
+            fn: Callable[[Dict[str, Dict[str, torch.Tensor]]], Dict[str, torch.Tensor]],
+            holds=None) -> Dict[str, torch.Tensor]:
+        """``fn(static inputs)`` for ``inputs`` on the key's graph -> its
+        outputs (the graph's static tensors once captured: read them before
+        the next call).  ``holds`` is kept with the graph (a model whose
+        ``id`` is in the key)."""
+        g = self.graphs.pop(key, None)
+        if g is None:
+            if self.max_graphs and len(self.graphs) >= self.max_graphs:
+                self.graphs.pop(next(iter(self.graphs)))     # the least recently used
+            g = Graph(inputs, device)
+            g.holds = holds
+        self.graphs[key] = g
+        g.fill(inputs)
+        stream = side_stream(device)
+        if not g.warm:
+            g.warm = 1
+            return on_side_stream(lambda: fn(g.inputs), stream, device)
+        if g.graph is None:
+            g.graph, g.out, g.launches = capture(lambda: fn(g.inputs), stream)
+            self.captures += 1
+        replay(g.graph, g.launches)
+        self.replays += 1
+        return g.out
 
 
 class CapturedStep:
@@ -242,11 +303,11 @@ class CapturedStep:
     def _bind(self, state: TrainState, device: torch.device) -> None:
         """Check the state, and (re)make the schedule when it is another
         state's or too short; the graphs go with it."""
-        if not isinstance(state.optimizer, OptaxAdam):
-            raise TypeError(f"the captured step updates with OptaxAdam's device "
-                            f"schedule, not {type(state.optimizer).__name__} "
-                            f"(step_route gives such a run the eager route)")
-        steps = {int(st["step"]) for st in state.optimizer.state.values()}
+        if not isinstance(state.optimizer, DEVICE_OPTIMIZERS):
+            raise TypeError(f"the captured step updates from a device schedule, "
+                            f"which {type(state.optimizer).__name__} has not")
+        steps = {int(st["step"]) for st in state.optimizer.state.values()
+                 if "step" in st}
         if steps - {state.step}:
             raise ValueError(f"optimizer step counts {sorted(steps)} differ from "
                              f"the state's step {state.step}")
@@ -270,12 +331,13 @@ class CapturedStep:
             raise RuntimeError(f"the captured step runs on a CUDA device, not "
                                f"{device}; the eager step (make_train_step) "
                                f"runs on the CPU")
-        if pmesh.world_size() > 1:
-            raise RuntimeError("the captured step runs on one process; "
-                               "--distributed takes the eager step")
+        world = pmesh.world_size()
+        if world > 1 and pmesh.backend() != "nccl":
+            raise RuntimeError(f"the captured step's collectives run on NCCL, not "
+                               f"{pmesh.backend()} (step_route gives it the eager step)")
         self._bind(state, device)
-        if draws is None:
-            draws = draw_render(self.mspec, self.rspec, batch["ray_o"].shape[0],
+        if draws is None:       # the whole batch's draws on every rank
+            draws = draw_render(self.mspec, self.rspec, batch["ray_o"].shape[0] * world,
                                 generator, device)
         inputs = {"batch": batch, "draws": draws}
         key = signature(batch)

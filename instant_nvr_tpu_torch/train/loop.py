@@ -17,8 +17,9 @@
     (numbered) epochs, and resume at the epoch after the last saved one;
   - a ``torch.profiler`` window over steps [lo, hi) with ``profile_window``;
   - after each epoch, with ``prune_using_geo``, the occupancy cube of
-    ``eval/mesh.py`` at res 128 from the epoch's last item, installed in
-    every dataset and written to ``result_dir/latest.npy``;
+    ``eval/mesh.py`` at res 128 from the epoch's last item (captured on
+    the card: its graph reads the weights the steps trained in place),
+    installed in every dataset and written to ``result_dir/latest.npy``;
   - validation on the val split (4 items) every ``eval_ep`` epochs and a
     one-item visualization every ``vis_ep`` epochs
     (``eval/runner.py:evaluate_dataset``; ``metrics_epoch{n}.npy`` and
@@ -191,7 +192,8 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
     last checkpoint (``resume``).  ``profile_window=(lo, hi)`` traces the
     steps [lo, hi) of this run into ``record_dir/profile``.  The step runs
     on ``train/compiled.py:step_route``'s route, printed first (``eager``
-    forces the eager one; so does the validation's frame)."""
+    forces the eager one, and the eager routes of the validation's frame
+    and LPIPS and of the epoch's cube)."""
     from ..run import build, resolve_device
     # on the card: TF32 off, so the VGG loss's cuDNN convolutions and the
     # matmuls run in float32 as the JAX package's do
@@ -378,7 +380,8 @@ def _after_epoch(cfg: Config, mspec, rspec, model, epoch: int, item: Dict,
     cube, validation, visualization.  Returns their wall times."""
     t0 = time.time()
     if cfg.get("prune_using_geo", False):
-        occ, _ = occupancy_grid(cfg, mspec, model, item, deformed=False, res=128)
+        occ, _ = occupancy_grid(cfg, mspec, model, item, deformed=False, res=128,
+                                eager=eager)
         for dset in datasets.values():
             dset.set_prune_geometry(occ)
         if pmesh.is_rank0():

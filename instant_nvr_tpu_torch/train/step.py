@@ -159,8 +159,8 @@ def compute_losses(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
     telemetry, ``loss`` and the per-ray L1 ``ray_error``.
 
     Under ``lw.remat`` the render runs inside ``torch.utils.checkpoint``.
-    The checkpoint replays only the global RNG, not ``generator``, so the
-    draws are made before it and passed in: the recomputed forward sees
+    The checkpoint would replay only the global RNG, not ``generator``, so
+    the draws are made before it and passed in: the recomputed forward sees
     the same jitter and pair noise.
 
     Across ranks ``batch`` holds this rank's rays and ``draws`` (or the
@@ -179,9 +179,14 @@ def compute_losses(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
     lo = pmesh.rank() * R
     draws = dict(draws, t_rand=draws["t_rand"][lo:lo + R])
     if lw.remat:
+        # the render draws nothing from the global RNG (its draws are given,
+        # and render_rays(train=True) samples no pdf), so the checkpoint has
+        # no RNG state to keep; keeping it would read and set the global
+        # CUDA RNG state, which a CUDA graph capture refuses
         ret = checkpoint(lambda b, d: render_rays(mspec, rspec, model, b,
                                                   train=True, draws=d),
-                         batch, draws, use_reentrant=False)
+                         batch, draws, use_reentrant=False,
+                         preserve_rng_state=False)
     else:
         ret = render_rays(mspec, rspec, model, batch, train=True, draws=draws)
     stats: Dict[str, torch.Tensor] = {}
@@ -329,8 +334,9 @@ def make_train_step(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
 def make_step_body(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
                    patch_loss_fn: Optional[PatchLossFn] = None):
     """The step as a CUDA graph can capture it: ``body(state, batch, draws,
-    sched, dstep) -> stats`` is :func:`make_train_step`'s step on one
-    process, with the draws given (``draw_render``'s, made before it) and
+    sched, dstep) -> stats`` is :func:`make_train_step`'s step (across
+    ranks its collectives too, all on the device), with the draws given
+    (``draw_render``'s of the whole batch, made before it) and
     the optimizer's update read from the :class:`~.state.DeviceSchedule`
     ``sched`` at the device step counter ``dstep`` (a 0-d int64 tensor,
     advanced by one on the device).  It reads no host value that changes
@@ -342,6 +348,9 @@ def make_step_body(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
              ) -> Dict[str, torch.Tensor]:
         stats = forward_backward(mspec, rspec, lw, state, batch, None, draws,
                                  patch_loss_fn)
+        if pmesh.world_size() > 1:
+            pmesh.all_reduce_grads(state.model.parameters())
+            stats = reduce_stats(stats)
         state.optimizer.step_device(sched, dstep)
         dstep.add_(1)
         return {k: v.detach() for k, v in stats.items()}

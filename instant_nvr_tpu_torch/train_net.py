@@ -13,9 +13,10 @@ starts fresh).  ``--dry_run`` prints the parameter inventory,
 (``eval/runner.py:evaluate_dataset``: ``result_dir/metrics.npy`` and the
 comparison PNGs).  ``--detect_anomaly`` turns on autograd's anomaly mode;
 the config's ``fix_random`` makes the run deterministic
-(:func:`apply_fix_random`).  On the card the step is a CUDA graph
+(:func:`apply_fix_random`).  On the card the step is a CUDA graph for
+every optimizer, under ``remat`` and across NCCL ranks
 (``train/compiled.py:step_route``, printed first); ``--eager`` runs it op
-by op.
+by op, as do Gloo ranks and ``--detect_anomaly``.
 
     python -m instant_nvr_tpu_torch.train_net --synthetic --steps 100
     python -m instant_nvr_tpu_torch.train_net --device cpu --tiny --steps 3

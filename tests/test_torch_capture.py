@@ -469,17 +469,25 @@ def test_captured_frame_and_routes_on_the_cpu():
 
 # -- routes -----------------------------------------------------------------------
 
-@pytest.mark.parametrize("name,over,kw,want", [
-    ("inb_377", {}, {}, "captured"),
-    ("inb_fake", {}, {}, "captured"),
-    ("inb_377", {"train": {"moment_dtype": "bfloat16"}}, {}, "captured"),
-    ("inb_377", {"train": {"optim": "radam"}}, {}, "optim radam"),
-    ("inb_377", {"train": {"optim": "sgd"}}, {}, "optim sgd"),
-    ("inb_377", {}, {"world": 2}, "--distributed"),
-    ("inb_377", {"remat": True}, {}, "remat"),
-    ("inb_377", {}, {"eager": True}, "--eager"),
-    ("inb_377", {}, {"device": "cpu"}, "CUDA device"),
-])
+# (config, overrides, step_route's arguments, the case, its route: captured
+# or a word of the eager route's reason); every optimizer, remat and NCCL
+# ranks are captured, Gloo ranks are not
+_ROUTES = [
+    ("inb_377", {}, {}, "captured", "captured"),
+    ("inb_fake", {}, {}, "captured", "captured"),
+    ("inb_377", {"train": {"moment_dtype": "bfloat16"}}, {}, "captured", "captured"),
+    ("inb_377", {"train": {"optim": "radam"}}, {}, "optim radam", "captured"),
+    ("inb_377", {"train": {"optim": "sgd"}}, {}, "optim sgd", "captured"),
+    ("inb_377", {}, {"world": 2, "backend": "nccl"}, "--distributed", "captured"),
+    ("inb_377", {"remat": True}, {}, "remat", "captured"),
+    ("inb_377", {}, {"eager": True}, "--eager", "--eager"),
+    ("inb_377", {}, {"device": "cpu"}, "CUDA device", "CUDA device"),
+    ("inb_377", {}, {"world": 2, "backend": "gloo"}, "gloo", "only NCCL"),
+]
+
+
+@pytest.mark.parametrize("name,over,kw,want", [c[:3] + c[4:] for c in _ROUTES],
+                         ids=[f"{c[0]}-over{i}-kw{i}-{c[3]}" for i, c in enumerate(_ROUTES)])
 def test_step_route(name, over, kw, want):
     cfg = make_cfg(os.path.join(ROOT, f"configs/inb/{name}.yaml")).merged(over)
     route = compiled.step_route(cfg, kw.pop("device", "cuda"), **kw)
