@@ -18,6 +18,17 @@ the copies, and :meth:`DeviceStager.ready` makes the consumer's stream wait
 on that event and marks every tensor as used on the consumer's stream
 (``record_stream``): the caching allocator then does not hand a cached
 frame tensor's memory to the side stream while a step still reads it.
+
+Counters (always on, one ``perf_counter_ns`` pair an item, counted by the
+consumer as it takes the items): ``Prefetcher.built`` items and
+``build_s`` their worker seconds in the producer, ``wait_s`` consumer
+seconds blocked on the queue; ``DeviceStager.bytes``
+copied to the device.  The spans (``utils/telemetry.py``, while a profiler
+records on the consumer's thread): ``prefetch.wait`` and ``stage.ready``
+on the consumer, and the workers' ``item.build`` and the stager's
+``item.stage``, each timed on its own thread, carried through the queue
+with the item and recorded by the consumer when it takes the item; the
+unit of each is the item's feed position.
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ from typing import Callable, Dict, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..utils import telemetry
 
 
 class Prefetcher:
@@ -45,6 +58,9 @@ class Prefetcher:
         self._err = None
         self._stop = False
         self._threads = []
+        self.built = 0
+        self.build_s = 0.0
+        self.wait_s = 0.0
         self._workers = max(1, int(workers))
         if self._workers == 1:
             self.thread = threading.Thread(target=self._run_serial, daemon=True)
@@ -68,10 +84,7 @@ class Prefetcher:
             for i in self.indices:
                 if self._stop:
                     return
-                b = self.producer(i)
-                if self.device_put is not None:
-                    b = self.device_put(b)
-                self.q.put(b)
+                self.q.put(self._stage(*self._build(i)))
         except BaseException as e:  # surface worker errors to the consumer
             self._err = e
         finally:
@@ -91,7 +104,7 @@ class Prefetcher:
                 pos = self._claim
                 self._claim += 1
             try:
-                item = self.producer(self.indices[pos])
+                built = self._build(self.indices[pos])
             except BaseException as e:
                 with self._cv:
                     if self._err is None:
@@ -99,7 +112,7 @@ class Prefetcher:
                     self._cv.notify_all()
                 return
             with self._cv:
-                self._ready[pos] = item
+                self._ready[pos] = built
                 self._cv.notify_all()
 
     def _stage_loop(self):
@@ -112,10 +125,8 @@ class Prefetcher:
                         self._cv.wait()
                     if self._err is not None or self._stop:
                         break
-                    item = self._ready.pop(self._next)
-                if self.device_put is not None:
-                    item = self.device_put(item)
-                self.q.put(item)
+                    built = self._ready.pop(self._next)
+                self.q.put(self._stage(*built))
                 with self._cv:
                     self._next += 1
                     self._cv.notify_all()
@@ -127,13 +138,39 @@ class Prefetcher:
         finally:
             self.q.put(None)
 
+    def _build(self, i):
+        """(item, its build's (start ns, end ns, thread))."""
+        t0 = time.perf_counter_ns()
+        item = self.producer(i)
+        return item, (t0, time.perf_counter_ns(), threading.current_thread().name)
+
+    def _stage(self, item, build):
+        """What the queue carries: (item after ``device_put``, the build's
+        timing, the staging's or None)."""
+        if self.device_put is None:
+            return item, build, None
+        t0 = time.perf_counter_ns()
+        item = self.device_put(item)
+        return item, build, (t0, time.perf_counter_ns(), threading.current_thread().name)
+
     def __iter__(self) -> Iterator[dict]:
+        pos = 0
         while True:
-            item = self.q.get()
-            if item is None:
+            t0 = time.perf_counter_ns()
+            with telemetry.span("prefetch.wait", pos):
+                got = self.q.get()
+            self.wait_s += (time.perf_counter_ns() - t0) / 1e9
+            if got is None:
                 if self._err is not None:
                     raise self._err
                 return
+            item, build, stage = got
+            self.built += 1
+            self.build_s += (build[1] - build[0]) / 1e9
+            telemetry.record("item.build", build[0], build[1], pos, build[2])
+            if stage is not None:
+                telemetry.record("item.stage", stage[0], stage[1], pos, stage[2])
+            pos += 1
             yield item
 
     def close(self, timeout: float = 10.0) -> None:
@@ -183,9 +220,11 @@ class DeviceStager:
         self.device = device
         self.build = build
         self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.bytes = 0
 
     def put(self, v) -> torch.Tensor:
         t = torch.from_numpy(np.asarray(v, order="C"))
+        self.bytes += t.numel() * t.element_size()
         if self.stream is None:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -202,8 +241,9 @@ class DeviceStager:
     def ready(self, staged: Staged):
         """(item, batch) with the current stream waiting on the copies."""
         if staged.copied is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(staged.copied)
-            for t in staged.batch.values():
-                t.record_stream(stream)
+            with telemetry.span("stage.ready"):
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(staged.copied)
+                for t in staged.batch.values():
+                    t.record_stream(stream)
         return staged.item, staged.batch

@@ -68,6 +68,8 @@ class CapturedLpips(compiled.CapturedProgram):
     the graph's 0-d output: read it before the next call.  Refuses a
     device other than CUDA."""
 
+    name = "lpips"
+
     def __call__(self, img_pred: torch.Tensor, img_gt: torch.Tensor,
                  weights_path: str, device) -> torch.Tensor:
         device = torch.device(device)

@@ -210,6 +210,8 @@ class CapturedCube(compiled.CapturedProgram):
     the ``MAX_CUBE_GRAPHS`` keys used last keep their graphs (and models).
     Refuses a model off the card."""
 
+    name = "cube"
+
     def __init__(self):
         super().__init__(max_graphs=MAX_CUBE_GRAPHS)
 

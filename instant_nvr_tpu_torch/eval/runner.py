@@ -9,6 +9,13 @@ the counterpart of that jit) and replayed; ``eager`` keeps the Python
 loop.  Padding is the JAX version's as it is (a power-of-two chunk count,
 padded by wrapping the real rays), so the worst-chunk telemetry, and with
 it the budgets, match.
+The frame's spans (``utils/telemetry.py``, while a profiler records):
+``frame`` (unit: the item's frame and camera) holds ``frame.pad``, the
+renderer's (captured: ``frame.copy_in`` and ``frame.replay``, see
+``train/compiled.py``; eager: ``frame.copy_in`` and a ``frame.chunk``
+each chunk), ``frame.readback``, and ``frame.raise`` around a raise of the
+budgets and its re-render; ``AutoBudgetRenderer.raises`` counts the
+raises.
 Across ranks (``parallel/mesh.py``) each rank renders a contiguous shard
 of the items, raises budgets into its own ``eval_budgets.json.rank<r>``,
 and rank 0 writes the metrics of every item (:func:`_allgather_metrics`).
@@ -30,6 +37,7 @@ from ..models import inb
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import TELEMETRY_KEYS, RenderSpec, render_rays
 from ..train import compiled
+from ..utils import telemetry
 from .evaluator import Evaluator, lpips_route
 
 RAY_KEYS = ("ray_o", "ray_d", "near", "far")
@@ -46,23 +54,27 @@ def eval_chunk(cfg) -> int:
 
 
 def make_chunked_renderer(mspec: inb.ModelSpec, rspec: RenderSpec,
-                          chunk: int) -> Callable:
+                          chunk: int, span=telemetry.untimed) -> Callable:
     """-> render_image(model, rays (Npad, ...), meta) -> rgb/acc maps
-    (Npad, ...) plus the worst chunk's budget telemetry, all on the device."""
+    (Npad, ...) plus the worst chunk's budget telemetry, all on the device.
+    ``span`` is ``telemetry.span`` on the eager route (the captured frame
+    runs this inside its graph, where no span may go)."""
 
     @torch.no_grad()
     def render_image(model: inb.InbModel, rays: Dict[str, torch.Tensor],
                      meta: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         device = next(model.parameters()).device
-        rays = {k: v.to(device) for k, v in rays.items()}
-        meta = {k: v.to(device) for k, v in meta.items()}
+        with span("frame.copy_in"):
+            rays = {k: v.to(device) for k, v in rays.items()}
+            meta = {k: v.to(device) for k, v in meta.items()}
         n = rays["ray_o"].shape[0]
         outs = []
         for s in range(0, n, chunk):
-            b = dict(meta)
-            b.update({k: rays[k][s:s + chunk] for k in RAY_KEYS})
-            ret = render_rays(mspec, rspec, model, b, train=False)
-            outs.append({k: ret[k] for k in MAP_KEYS + TELEMETRY_KEYS})
+            with span("frame.chunk", s // chunk):
+                b = dict(meta)
+                b.update({k: rays[k][s:s + chunk] for k in RAY_KEYS})
+                ret = render_rays(mspec, rspec, model, b, train=False)
+                outs.append({k: ret[k] for k in MAP_KEYS + TELEMETRY_KEYS})
         res = {k: torch.cat([o[k] for o in outs]) for k in MAP_KEYS}
         for k in ("cull_overflow", "part_overflow", "cull_need"):
             res[k] = torch.stack([o[k] for o in outs]).amax()
@@ -85,6 +97,8 @@ class CapturedFrame(compiled.CapturedProgram):
     (:class:`~..train.compiled.CapturedProgram`).  The outputs are the
     graph's static tensors: read them before the next frame.  Refuses a
     model off the card."""
+
+    name = "frame"
 
     def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, chunk: int):
         super().__init__()
@@ -120,12 +134,14 @@ def render_full_image(render_fn, model: inb.InbModel,
     render on the model's device (``render_fn`` copies the host tensors
     there), unpad; returns numpy arrays."""
     n = item["ray_o"].shape[0]
-    idx = np.arange(padded_chunks(n, chunk) * chunk) % n
-    rays = {k: _host(np.asarray(item[k])[idx]) for k in RAY_KEYS}
-    meta = {k: _host(np.asarray(item[k])) for k in meta_keys if k in item}
+    with telemetry.span("frame.pad"):
+        idx = np.arange(padded_chunks(n, chunk) * chunk) % n
+        rays = {k: _host(np.asarray(item[k])[idx]) for k in RAY_KEYS}
+        meta = {k: _host(np.asarray(item[k])) for k in meta_keys if k in item}
     out = render_fn(model, rays, meta)
-    return {k: v.cpu().numpy()[:n] if k in MAP_KEYS else v.cpu().numpy()
-            for k, v in out.items()}
+    with telemetry.span("frame.readback"):
+        return {k: v.cpu().numpy()[:n] if k in MAP_KEYS else v.cpu().numpy()
+                for k, v in out.items()}
 
 
 def raise_budgets(mspec: inb.ModelSpec, cull_need: float, part_need,
@@ -172,7 +188,7 @@ class AutoBudgetRenderer:
 
     ``captured`` renders through a :class:`CapturedFrame` (a new one for
     each raise of the budgets), else through the eager
-    :func:`make_chunked_renderer`.
+    :func:`make_chunked_renderer`.  ``raises`` counts the raises.
     """
 
     def __init__(self, mspec: inb.ModelSpec, rspec: RenderSpec, chunk: int,
@@ -193,13 +209,15 @@ class AutoBudgetRenderer:
         self.chunk = chunk
         self.max_raises = max_raises
         self.chunks_rendered = 0
+        self.raises = 0
         self.captured = captured
         self.render_fn = self._renderer()
 
     def _renderer(self):
         if self.captured:
             return CapturedFrame(self.mspec, self.rspec, self.chunk)
-        return make_chunked_renderer(self.mspec, self.rspec, self.chunk)
+        return make_chunked_renderer(self.mspec, self.rspec, self.chunk,
+                                     span=telemetry.span)
 
     def _save(self) -> None:
         if not self.persist_path:
@@ -220,19 +238,26 @@ class AutoBudgetRenderer:
 
     def __call__(self, model: inb.InbModel,
                  item: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        unit = tuple(int(item[k]) for k in ("frame_index", "cam_ind") if k in item)
+        with telemetry.span("frame", unit):
+            return self._render_settled(model, item)
+
+    def _render_settled(self, model, item):
         out = self._render(model, item)
         for _ in range(self.max_raises):
             if out["cull_overflow"] <= 0 and out["part_overflow"] <= 0:
                 return out
-            self.mspec = raise_budgets(self.mspec, out["cull_need"],
-                                       out["part_need"])
-            self._save()
-            print(f"eval: budget overflow (cull {float(out['cull_overflow']):.4f}, "
-                  f"part {float(out['part_overflow']):.4f}) -> raised to "
-                  f"cull_frac={self.mspec.cull_frac:.3f} "
-                  f"part_frac={self.mspec.part_frac:.3f}; re-rendering")
-            self.render_fn = self._renderer()
-            out = self._render(model, item)
+            with telemetry.span("frame.raise"):
+                self.mspec = raise_budgets(self.mspec, out["cull_need"],
+                                           out["part_need"])
+                self.raises += 1
+                self._save()
+                print(f"eval: budget overflow (cull {float(out['cull_overflow']):.4f}, "
+                      f"part {float(out['part_overflow']):.4f}) -> raised to "
+                      f"cull_frac={self.mspec.cull_frac:.3f} "
+                      f"part_frac={self.mspec.part_frac:.3f}; re-rendering")
+                self.render_fn = self._renderer()
+                out = self._render(model, item)
         if out["cull_overflow"] > 0 or out["part_overflow"] > 0:
             print(f"eval WARNING: overflow persists after {self.max_raises} "
                   f"budget raises (cull {float(out['cull_overflow']):.4f}, "

@@ -48,7 +48,17 @@ keeps one past the next step clones it.
 The kernels' ``.launches`` counters count Python calls, which a replay
 does not make: :func:`capture` records each graph's launches and takes
 them back out of the counters (the capture launched nothing), and
-:func:`replay` adds them on every replay.
+:func:`replay` adds them on every replay.  ``CapturedStep.fill_bytes``
+counts the bytes each call copies into the graphs' static inputs.
+
+The spans (``utils/telemetry.py``, while a profiler records) lie around
+the captured region, never inside it (a graph does not replay host code):
+a step's ``step`` (unit: ``state.step``) holds ``step.bind``,
+``step.draws``, ``step.fill`` and one of ``step.warmup``,
+``step.capture`` + ``step.replay``, or ``step.replay``; a captured eval
+program's call holds ``<name>.copy_in`` and one of ``<name>.warmup``,
+``<name>.capture`` + ``<name>.replay`` or ``<name>.replay``
+(:attr:`CapturedProgram.name`: ``frame``, ``cube``, ``lpips``).
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ from ..models import inb
 from ..ops import knn, scatter
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import RenderSpec
+from ..utils import telemetry
 from .state import DEVICE_OPTIMIZERS, DeviceSchedule, TrainState
 from .step import LossWeights, PatchLossFn, draw_render, make_step_body
 
@@ -225,6 +236,8 @@ class Graph:
 
     def __init__(self, inputs: Dict[str, Dict[str, torch.Tensor]], device=None):
         self.inputs = {name: static_copy(d, device) for name, d in inputs.items()}
+        self.nbytes = sum(v.numel() * v.element_size()
+                          for d in self.inputs.values() for v in d.values())
         self.warm = 0
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Dict[str, torch.Tensor] = {}
@@ -244,7 +257,9 @@ class CapturedProgram:
     (the warm-up: kernels, constants, handles), the second captures and
     replays, each later one replays.  With ``max_graphs`` the keys used
     last keep their graphs (and what each holds), the older ones are
-    dropped."""
+    dropped.  ``name`` prefixes its spans."""
+
+    name = "program"
 
     def __init__(self, max_graphs: Optional[int] = None):
         self.graphs: Dict[tuple, Graph] = {}
@@ -266,15 +281,19 @@ class CapturedProgram:
             g = Graph(inputs, device)
             g.holds = holds
         self.graphs[key] = g
-        g.fill(inputs)
+        with telemetry.span(self.name + ".copy_in"):
+            g.fill(inputs)
         stream = side_stream(device)
         if not g.warm:
             g.warm = 1
-            return on_side_stream(lambda: fn(g.inputs), stream, device)
+            with telemetry.span(self.name + ".warmup"):
+                return on_side_stream(lambda: fn(g.inputs), stream, device)
         if g.graph is None:
-            g.graph, g.out, g.launches = capture(lambda: fn(g.inputs), stream)
+            with telemetry.span(self.name + ".capture"):
+                g.graph, g.out, g.launches = capture(lambda: fn(g.inputs), stream)
             self.captures += 1
-        replay(g.graph, g.launches)
+        with telemetry.span(self.name + ".replay"):
+            replay(g.graph, g.launches)
         self.replays += 1
         return g.out
 
@@ -295,6 +314,7 @@ class CapturedStep:
         self.graphs: Dict[tuple, Graph] = {}
         self.captures = 0
         self.replays = 0
+        self.fill_bytes = 0
         self._bound = None          # (model, optimizer) the graphs hold
         self.sched: Optional[DeviceSchedule] = None
         self.dstep: Optional[torch.Tensor] = None
@@ -335,40 +355,48 @@ class CapturedStep:
         if world > 1 and pmesh.backend() != "nccl":
             raise RuntimeError(f"the captured step's collectives run on NCCL, not "
                                f"{pmesh.backend()} (step_route gives it the eager step)")
-        self._bind(state, device)
-        if draws is None:       # the whole batch's draws on every rank
-            draws = draw_render(self.mspec, self.rspec, batch["ray_o"].shape[0] * world,
-                                generator, device)
-        inputs = {"batch": batch, "draws": draws}
-        key = signature(batch)
-        g = self.graphs.get(key)
-        if g is None:
-            g = self.graphs[key] = Graph(inputs)
-        g.fill(inputs)
-        if self._dstep_at != state.step:
-            self.dstep.fill_(state.step)
+        with telemetry.span("step", state.step):
+            with telemetry.span("step.bind"):
+                self._bind(state, device)
+            if draws is None:       # the whole batch's draws on every rank
+                with telemetry.span("step.draws"):
+                    draws = draw_render(self.mspec, self.rspec,
+                                        batch["ray_o"].shape[0] * world, generator, device)
+            inputs = {"batch": batch, "draws": draws}
+            key = signature(batch)
+            g = self.graphs.get(key)
+            if g is None:
+                g = self.graphs[key] = Graph(inputs)
+            with telemetry.span("step.fill"):
+                g.fill(inputs)
+                if self._dstep_at != state.step:
+                    self.dstep.fill_(state.step)
+            self.fill_bytes += g.nbytes
 
-        def run():
-            return self.body(state, g.inputs["batch"], g.inputs["draws"],
-                             self.sched, self.dstep)
+            def run():
+                return self.body(state, g.inputs["batch"], g.inputs["draws"],
+                                 self.sched, self.dstep)
 
-        if g.graph is None and g.warm < WARMUP_STEPS:
-            stats = on_side_stream(run, side_stream(device), device)
-            g.warm += 1
-        else:
-            if g.graph is None:
-                g.graph, g.out, g.launches = capture(run, side_stream(device))
-                g.held = held_tensors(state)
-                self.captures += 1
-            elif not same_tensors(held_tensors(state), g.held):
-                raise RuntimeError("the model's parameters or the optimizer's moments "
-                                   "are other tensors than the graph captured (a "
-                                   "load_state_dict after the capture?): make a new "
-                                   "CapturedStep")
-            replay(g.graph, g.launches)
-            self.replays += 1
-            stats = g.out
-        state.optimizer.advance_steps()
-        state.step += 1
-        self._dstep_at = state.step
+            if g.graph is None and g.warm < WARMUP_STEPS:
+                with telemetry.span("step.warmup"):
+                    stats = on_side_stream(run, side_stream(device), device)
+                g.warm += 1
+            else:
+                if g.graph is None:
+                    with telemetry.span("step.capture"):
+                        g.graph, g.out, g.launches = capture(run, side_stream(device))
+                    g.held = held_tensors(state)
+                    self.captures += 1
+                elif not same_tensors(held_tensors(state), g.held):
+                    raise RuntimeError("the model's parameters or the optimizer's "
+                                       "moments are other tensors than the graph "
+                                       "captured (a load_state_dict after the "
+                                       "capture?): make a new CapturedStep")
+                with telemetry.span("step.replay"):
+                    replay(g.graph, g.launches)
+                self.replays += 1
+                stats = g.out
+            state.optimizer.advance_steps()
+            state.step += 1
+            self._dstep_at = state.step
         return state, stats

@@ -11,11 +11,16 @@
     draws what an unbroken one would;
   - the step on ``train/compiled.py:step_route``'s route, printed first:
     on the card a CUDA graph (``CapturedStep``), else the eager step;
-  - a console line every ``log_interval`` steps, the host data wait per
-    epoch, the error map of MSE-guided sampling;
+  - a console line every ``log_interval`` steps (``batch``: wall seconds
+    a step over the interval's steps, read after its stats' ``float()``
+    has synchronized; ``data``: the Prefetcher's queue wait a step over
+    them), a line per epoch (the host data wait, items built, their mean
+    build ms, MB staged), the error map of MSE-guided sampling;
   - a checkpoint every ``save_latest_ep`` (latest) and ``save_ep``
     (numbered) epochs, and resume at the epoch after the last saved one;
-  - a ``torch.profiler`` window over steps [lo, hi) with ``profile_window``;
+  - a ``torch.profiler`` window over steps [lo, hi) with ``profile_window``,
+    written to ``record_dir/profile/trace.json`` with the ``nvr.`` spans
+    (``utils/telemetry.py``) of the window, the worker threads' too;
   - after each epoch, with ``prune_using_geo``, the occupancy cube of
     ``eval/mesh.py`` at res 128 from the epoch's last item (captured on
     the card: its graph reads the weights the steps trained in place),
@@ -51,7 +56,7 @@ from ..eval.runner import evaluate_dataset
 from ..models.budget import apply_auto_budget
 from ..models.lpips import perceptual_loss
 from ..parallel import mesh as pmesh
-from ..utils import native
+from ..utils import native, telemetry
 from ..utils.intervals import busy_us
 from .checkpoint import load_checkpoint, save_checkpoint
 from .compiled import CapturedStep, step_route
@@ -155,7 +160,7 @@ def make_patch_loss_fn(cfg):
 class EpochLog(NamedTuple):
     epoch: int
     steps: int
-    data_s: float            # host time waiting on the prefetcher
+    data_s: float            # host time waiting on the prefetcher (Prefetcher.wait_s)
     wall_s: float            # the epoch's wall time (its steps)
     cube_s: float = 0.0      # the prune_using_geo cube after the steps
     eval_s: float = 0.0      # validation and visualization after the steps
@@ -263,16 +268,15 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
             pf = Prefetcher(produce, range(len(indices)), depth=8,
                             device_put=stager,
                             workers=max(1, int(cfg.train.num_workers)))
-            ep_t0 = t_data = time.time()
-            ep_data_s, ep_losses = 0.0, []
+            ep_t0 = log_t0 = time.time()
+            ep_losses, log_steps, log_wait0 = [], 0, 0.0
             try:
                 for it, staged in enumerate(pf):
-                    data_time = time.time() - t_data
-                    ep_data_s += data_time
                     item, batch = stager.ready(staged)
 
                     if profile_window is not None and steps_seen == profile_window[0]:
                         sync()
+                        telemetry.clear()
                         prof = torch.profiler.profile(activities=(
                             [torch.profiler.ProfilerActivity.CPU]
                             + ([torch.profiler.ProfilerActivity.CUDA] if cuda else [])))
@@ -305,24 +309,30 @@ def train(cfg: Config, device: torch.device, resume: bool = True,
                         t_start = time.time()
 
                     recorder.step += 1
+                    log_steps += 1
                     if (it + 1) % cfg.log_interval == 0 or it == ep_iter - 1:
+                        # float() waits for the step: the interval's wall
+                        # time is its steps' own
                         recorder.update({k: float(v) for k, v in stats.items()
                                          if v.ndim == 0})
-                        batch_time = (time.time() - t_start) / max(steps_seen - 1, 1)
-                        print(recorder.console_line(state.schedule(state.step),
-                                                    max_iter, batch_time, data_time),
+                        now = time.time()
+                        print(recorder.console_line(state.schedule(state.step), max_iter,
+                                                    (now - log_t0) / log_steps,
+                                                    (pf.wait_s - log_wait0) / log_steps),
                               flush=True)
                         recorder.record("train")
-                    t_data = time.time()
+                        log_t0, log_steps, log_wait0 = now, 0, pf.wait_s
             finally:
                 pf.close()
             sync()
             ep_wall = time.time() - ep_t0
             losses += torch.stack(ep_losses).cpu().tolist() if ep_losses else []
-            epochs.append(EpochLog(epoch, len(ep_losses), ep_data_s, ep_wall))
-            print(f"epoch {epoch}: host data wait {ep_data_s:.1f}s of "
+            epochs.append(EpochLog(epoch, len(ep_losses), pf.wait_s, ep_wall))
+            print(f"epoch {epoch}: host data wait {pf.wait_s:.1f}s of "
                   f"{ep_wall:.1f}s wall "
-                  f"({100.0 * ep_data_s / max(ep_wall, 1e-9):.1f}%)", flush=True)
+                  f"({100.0 * pf.wait_s / max(ep_wall, 1e-9):.1f}%); {pf.built} items "
+                  f"built, {1e3 * pf.build_s / max(pf.built, 1):.1f} ms each on a "
+                  f"worker; {stager.bytes / 1e6:.1f} MB staged", flush=True)
 
             if (ecfg.get("sample_using_mse", False) and ds.error_map is not None
                     and rank0):
@@ -362,13 +372,18 @@ def _stop_profile(prof, t0: float, sync, steps: int):
 
 
 def _profile_summary(prof, wall: float, steps: int, record_dir: str) -> Dict:
-    """Write a window's trace to ``record_dir/profile``; its numbers."""
+    """Write a window's trace to ``record_dir/profile``, with the spans the
+    profiler could not record (the Prefetcher's workers' ``item.build``
+    and ``item.stage``) placed on its clock; the window's numbers."""
     out = os.path.join(record_dir, "profile")
     os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    path = os.path.join(out, "trace.json")
+    prof.export_chrome_trace(path)
+    placed = telemetry.add_to_chrome_trace(path)
     dev = _device_seconds(prof.events())
     print(f"profile trace captured: {steps} steps, {wall:.3f}s wall, device "
-          f"{'not measured' if dev is None else f'{dev:.3f}s'}", flush=True)
+          f"{'not measured' if dev is None else f'{dev:.3f}s'}, {placed} worker "
+          f"spans placed", flush=True)
     return {"steps": steps, "wall_s": wall, "device_s": dev,
             "busy": None if dev is None else dev / wall}
 

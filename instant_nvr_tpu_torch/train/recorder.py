@@ -2,7 +2,7 @@
 scalars (port of ``instant_nvr_tpu/train/recorder.py``).
 
 A scalar's windowed median drives the console line (lr, ETA, step and
-data times); the TensorBoard writer is used when
+data times, which the caller measures); the TensorBoard writer is used when
 ``torch.utils.tensorboard`` imports, and skipped otherwise.
 """
 from __future__ import annotations
@@ -76,6 +76,10 @@ class Recorder:
 
     def console_line(self, lr: float, max_iter: int, batch_time: float,
                      data_time: float) -> str:
+        """The JAX package's line; ``batch_time`` is seconds a step (the ETA
+        counts the steps left at it), ``data_time`` the seconds a step
+        waited for its batch (``train/loop.py``: both over the last log
+        interval's steps)."""
         eta = (max_iter - self.step) * batch_time
         h, rem = divmod(int(eta), 3600)
         m, s = divmod(rem, 60)

@@ -35,6 +35,7 @@ from ..ops.math import safe_norm
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import (TELEMETRY_KEYS, RenderSpec, pair_budget,
                                      pair_reg_loss, render_rays)
+from ..utils import telemetry
 from .crit import elastic_crit, normal_crit, sdf_mask_crit
 from .state import TrainState
 
@@ -286,22 +287,25 @@ def forward_backward(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
                      state: TrainState, batch: Dict[str, torch.Tensor],
                      generator: torch.Generator | None = None,
                      draws: Dict[str, torch.Tensor] | None = None,
-                     patch_loss_fn: Optional[PatchLossFn] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     patch_loss_fn: Optional[PatchLossFn] = None,
+                     span=telemetry.untimed) -> Dict[str, torch.Tensor]:
     """A step up to its update: zero the grads, forward, backward, a zero
     gradient for every parameter the loss does not reach; returns the
-    stats."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss, stats = compute_losses(mspec, rspec, lw, state.model, batch,
-                                 generator, draws, step=state.step,
-                                 patch_loss_fn=patch_loss_fn)
-    loss.backward()
-    # JAX's gradient of a parameter the loss does not reach is zero, and
-    # optax still steps it (weight decay, decaying moments), where
-    # torch.optim skips a parameter without a gradient
-    for p in state.model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
+    stats.  ``span`` is ``telemetry.span`` on the eager route (the
+    captured step runs this inside its graph, where no span may go)."""
+    with span("step.forward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, stats = compute_losses(mspec, rspec, lw, state.model, batch,
+                                     generator, draws, step=state.step,
+                                     patch_loss_fn=patch_loss_fn)
+    with span("step.backward"):
+        loss.backward()
+        # JAX's gradient of a parameter the loss does not reach is zero, and
+        # optax still steps it (weight decay, decaying moments), where
+        # torch.optim skips a parameter without a gradient
+        for p in state.model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     return stats
 
 
@@ -313,19 +317,24 @@ def make_train_step(mspec: inb.ModelSpec, rspec: RenderSpec, lw: LossWeights,
     in place.  Stats are detached tensors (nothing waits for the device).
     ``patch_loss_fn`` is the patch-mode image loss (used when
     ``lw.use_patch``).  This is the eager route; ``train/compiled.py``
-    replays :func:`make_step_body` as a CUDA graph."""
+    replays :func:`make_step_body` as a CUDA graph.  Its spans
+    (``utils/telemetry.py``): ``step`` (unit: ``state.step``) holding
+    ``step.forward``, ``step.backward`` and ``step.optimizer`` (with the
+    ranks' all-reduce)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator | None = None,
                    draws: Dict[str, torch.Tensor] | None = None):
-        stats = forward_backward(mspec, rspec, lw, state, batch, generator,
-                                 draws, patch_loss_fn)
-        if pmesh.world_size() > 1:
-            pmesh.all_reduce_grads(state.model.parameters())
-            stats = reduce_stats(stats)
-        state.set_lr()
-        state.optimizer.step()
-        state.step += 1
+        with telemetry.span("step", state.step):
+            stats = forward_backward(mspec, rspec, lw, state, batch, generator,
+                                     draws, patch_loss_fn, span=telemetry.span)
+            with telemetry.span("step.optimizer"):
+                if pmesh.world_size() > 1:
+                    pmesh.all_reduce_grads(state.model.parameters())
+                    stats = reduce_stats(stats)
+                state.set_lr()
+                state.optimizer.step()
+            state.step += 1
         return state, {k: v.detach() for k, v in stats.items()}
 
     return train_step
