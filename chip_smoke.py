@@ -219,6 +219,24 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      ``fix_random``, captured (its route printed) against ``--eager``:
      losses, parameters and moments bit-equal.  ``python3 chip_smoke.py
      --nccl-ranks N`` runs (e) alone on N NCCL ranks, one a card.
+ 17. the fused hash-grid encoding (``csrc/hashgrid_encode.cu``): the cases
+     of ``tests/test_torch_hashgrid_fused.py`` (inb_377's part grids with
+     bf16 and float32 tables, the deformer's concat grid, non-scalar part
+     grids, one spec of each other mode; tables at std 0.1 and 1.0; 1.1 M
+     points in and around the boxes and 20,011 a part on cell boundaries),
+     each kernel call against the plain chain at ``tests/
+     test_torch_hashgrid.py``'s tolerance, with its max error and share of
+     bit-equal values; the bf16-lerp control, which must fail that
+     tolerance at std 1.0; then the part grids and the deformer at the
+     render chunk's shape (``RENDER_KPS``, the budgets
+     ``inb377.render.eval``'s set-up raises to): the kernel's output
+     against the plain chain's at the same tolerance (its max error and
+     share of bit-equal values), the kernel's and the plain
+     chain's event and device ms, the bound (the points, the
+     distinct table rows the plain chain gathers and the output, each
+     once, over 3.35 TB/s) and the share.
+     Phases 4 and 5 also assert the route: 2 launches a render chunk and
+     no plain CUDA encode; no launch in a train step.
 Then one JSON line of kernel numbers (launches: the render, train,
 self-check, patch, evaluate, data-parallel, real-subject, orbax,
 completion, bench, captured and programs phases together, each row also with ``orbax_launches``; a KNN row's times are the render
@@ -238,8 +256,8 @@ graphs' launches a replay, ``captured_replay_launches``, phase 16's,
 ``programs_replay_launches``; the sorted kernel's row, phase 13's only,
 has its uniform-keys case with the train step's records beside it, its
 times under the deterministic flag and the summed times of a
-``fix_random`` patch step's 18 sorted calls),
-the ``nvidia-smi`` name/power line, and last
+``fix_random`` patch step's 18 sorted calls), one JSON line of phase 17's
+numbers (``hashgrid_encode``), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import copy
@@ -828,6 +846,9 @@ def reset_counts(knn, scatter):
     scatter.onehot_scatter_add.launches = 0
     scatter.sorted_scatter_add.launches = 0
     scatter.exact_scatter_add.calls = 0
+    from instant_nvr_tpu_torch.ops import hashgrid
+    hashgrid.fused_encode.launches = 0
+    hashgrid.fused_encode.plain_cuda_calls = 0
 
 
 def launch_counts(knn, scatter):
@@ -912,6 +933,10 @@ def train_slice(cfg, dev, knn, scatter):
     if counts != want or routes["exact"] or exact_calls:
         raise AssertionError(f"launches {counts} != {want} (routes per step "
                              f"{dict(routes)}, exact index_add_ calls {exact_calls})")
+    from instant_nvr_tpu_torch.ops import hashgrid
+    if hashgrid.fused_encode.launches:
+        raise AssertionError(f"train steps launched the fused encoder "
+                             f"{hashgrid.fused_encode.launches} times")
     med = rates[len(rates) // 2]
     phase("train", config="inb_377", rays=n_rays, samples=trainer.rspec.n_samples,
           steps=steps, windows=f"{bench.WINDOWS}x{bench.STEPS_PER_WINDOW}",
@@ -919,7 +944,9 @@ def train_slice(cfg, dev, knn, scatter):
           max=f"{rates[-1]:.1f}", ms_per_step=f"{1000 * n_rays / med:.2f}",
           peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{loss[0]:.5f}",
           loss_last=f"{loss[-1]:.5f}", routes_per_step=repr(dict(routes)),
-          launches=repr(counts), route=repr(str(trainer.route)))
+          launches=repr(counts), route=repr(str(trainer.route)),
+          encode_launches=hashgrid.fused_encode.launches,
+          plain_encodes_per_step=f"{hashgrid.fused_encode.plain_cuda_calls / steps:g}")
     busy, top_kernels, top_ops = profile_steps(trainer, gen)
     phase("train-profile", steps=PROFILE_STEPS,
           device_busy=("not measured" if busy is None else f"{busy:.3f}"),
@@ -3061,11 +3088,13 @@ def params_agree(label, a, b, lr, steps):
 
 
 def graph_launches(step):
-    """The launches one replay of each of ``step``'s graphs counts, by kernel."""
+    """The launches one replay of each of ``step``'s graphs counts, by kernel
+    (``fused_encode.plain_cuda_calls`` counts the plain chain's calls, not a
+    kernel's launches: left out)."""
     from instant_nvr_tpu_torch.train import compiled
-    names = [f.__name__ if attr == "launches" else "exact_index_add"
-             for f, attr in compiled._COUNTERS]
-    return [{n: c for n, c in zip(names, g.launches) if c}
+    names = [(i, f.__name__ if attr == "launches" else "exact_index_add")
+             for i, (f, attr) in enumerate(compiled._COUNTERS) if attr != "plain_cuda_calls"]
+    return [{n: g.launches[i] for i, n in names if g.launches[i]}
             for g in step.graphs.values() if g.graph is not None]
 
 
@@ -3783,6 +3812,109 @@ def programs_slice(dev, knn, scatter):
     return total, per_replay
 
 
+# the part budgets of a render chunk of inb377.render.eval at the budgets
+# its set-up raises to (cull 0.4652 of 4,096 rays x 64 samples, each part
+# raised on its own): 432,128 points a chunk (PERF.md, section 5)
+RENDER_KPS = (61_056, 121_984, 121_984, 58_496, 68_608)
+
+
+def hashgrid_cases_module():
+    """``tests/test_torch_hashgrid_fused.py``, whose cases phase 17 runs (it
+    imports nothing of JAX)."""
+    import importlib.util
+    path = os.path.join(HERE, "tests", "test_torch_hashgrid_fused.py")
+    spec = importlib.util.spec_from_file_location("test_torch_hashgrid_fused", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gathered_bytes(fn):
+    """Bytes of the distinct table rows the plain chain gathers in ``fn()``
+    (each row once, at the table's row width)."""
+    import torch
+    from instant_nvr_tpu_torch.ops import hashgrid
+    total, orig = [0], hashgrid._gather
+
+    def spy(spec, table, ind, level_offsets):
+        row = table.element_size() * (1 if table.ndim == 1 else table.shape[1])
+        total[0] += int(torch.unique(ind).numel()) * row
+        return orig(spec, table, ind, level_offsets)
+    hashgrid._gather = spy
+    try:
+        fn()
+    finally:
+        hashgrid._gather = orig
+    return total[0]
+
+
+def hashgrid_slice(dev):
+    """Phase 17 (see the module doc) -> its numbers by encoder."""
+    import torch
+    from instant_nvr_tpu_torch.config import make_cfg
+    from instant_nvr_tpu_torch.models import inb
+    t = hashgrid_cases_module()
+    t0 = time.perf_counter()
+    worst = {}
+    for name, kind, specs, dtype in t.cases():
+        for std in t.SCALES:
+            for points, r in t.run_case(name, kind, specs, dtype, std, dev).items():
+                phase("hashgrid-vs-plain", case=name, std=std, points=points,
+                      max_abs_err=f"{r['max_abs_err']:.3e}", bit_equal=f"{r['bit_equal']:.6f}",
+                      over_tol=r["over_tol"])
+                if not r["ok"]:
+                    raise AssertionError(f"hashgrid {name} std {std} {points}: {r}")
+                worst[name] = max(worst.get(name, 0.0), r["max_abs_err"])
+            torch.cuda.empty_cache()
+    control = {std: t.control_case(std, dev) for std in t.SCALES}
+    phase("hashgrid-control", lerp="bfloat16", tol=repr(t.TOL),
+          **{f"std{std}": repr(r) for std, r in control.items()})
+    if control[1.0]["ok"]:
+        raise AssertionError("the bf16-lerp control holds the tolerance at std 1.0: "
+                             "the check cannot see the lerp's precision")
+    phase("hashgrid-cases", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # the render chunk's shape
+    mspec = inb.build_model_spec(make_cfg(CFG))
+    Kps = RENDER_KPS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"max_abs_err": worst, "control": control}
+    for enc, kind, specs, dtype, segs in (
+            ("parts", "multi", mspec.part_embeds, torch.bfloat16, Kps),
+            ("deformer", "single", (mspec.deformer.embed,), torch.float32, (sum(Kps),))):
+        tables = t.draw_tables(specs, 0.1, dtype, gen, dev)
+        pts, bounds, segs = t.draw_points(specs, kind, gen, dev, segs)["box"]
+        M, D = sum(segs), specs[0].out_dim
+        with torch.no_grad():
+            fused = lambda: t.encode(kind, specs, tables, pts, bounds, segs)  # noqa: E731
+            plain = lambda: t.encode(kind, specs, tables, pts, bounds, segs, plain=True)  # noqa: E731
+            r = t.compare(fused(), plain())
+            if not r["ok"]:
+                raise AssertionError(f"hashgrid {enc} at the render chunk's shape: {r}")
+            ms, plain_ms = cuda_median_ms(fused), cuda_median_ms(plain)
+            split = device_split(fused)
+            dev_ms = sum(split.values()) if split else None
+            plain_dev_ms = device_ms(plain)
+            nbytes = 12 * M + 24 * len(specs) + 4 * D * M + gathered_bytes(plain)
+        bnd = bound(0, nbytes)
+        share = None if dev_ms is None else bnd[0] / dev_ms
+        out[enc] = {"points": M, "segments": list(segs), "ms": ms, "device_ms": dev_ms,
+                    "kernels": sorted(kernel_name(k) for k in split),
+                    "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
+                    "max_abs_err": r["max_abs_err"], "bit_equal": r["bit_equal"],
+                    "bound_ms": bnd[0], "bound_by": bnd[1], "share": share}
+        phase("hashgrid-time", card=repr(nvidia_smi()), encoder=enc, points=M,
+              segments=list(segs), max_abs_err=f"{r['max_abs_err']:.3e}",
+              bit_equal=f"{r['bit_equal']:.6f}", ms=fmt_ms(ms), device_ms=fmt_ms(dev_ms),
+              kernels=repr(out[enc]["kernels"]), plain_ms=fmt_ms(plain_ms),
+              plain_device_ms=fmt_ms(plain_dev_ms), bound_ms=f"{bnd[0]:.4f}",
+              bound_by=bnd[1], share=("not measured" if share is None else f"{share:.1%}"),
+              speedup=f"{plain_ms / ms:.1f}x")
+        del tables, pts
+        torch.cuda.empty_cache()
+    return out
+
+
 def nccl_ranks_only(world: int) -> int:
     """``python3 chip_smoke.py --nccl-ranks N``: only phase 16(e), on N
     NCCL ranks, one a card (N cards), after the kernels' build and phase
@@ -3837,7 +3969,7 @@ def main(argv=None) -> int:
         return nccl_ranks_only(int(argv[1]))
     from instant_nvr_tpu_torch.config import make_cfg
     from instant_nvr_tpu_torch.eval.runner import AutoBudgetRenderer, eval_chunk
-    from instant_nvr_tpu_torch.ops import knn, scatter
+    from instant_nvr_tpu_torch.ops import hashgrid, knn, scatter
     from instant_nvr_tpu_torch import cuda_build, run
     from instant_nvr_tpu_torch.utils import native
     from instant_nvr_tpu_torch.datasets import jpeg
@@ -3859,6 +3991,7 @@ def main(argv=None) -> int:
     scatter.load_segmented_kernel()
     scatter.load_onehot_kernel()
     scatter.load_sorted_kernel()
+    hashgrid.load_fused_kernel()
     for name in cuda_build.KERNELS:
         ptxas = [ln.strip() for ln in cuda_build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -3909,10 +4042,15 @@ def main(argv=None) -> int:
     if launches != r["chunks_rendered"] or launches == 0:
         raise AssertionError(f"knn_blend launched {launches} times for "
                              f"{r['chunks_rendered']} chunks")
+    enc = (hashgrid.fused_encode.launches, hashgrid.fused_encode.plain_cuda_calls)
+    if enc != (2 * r["chunks_rendered"], 0):
+        raise AssertionError(f"the render's encoders: (fused launches, plain CUDA "
+                             f"encodes) {enc} for {r['chunks_rendered']} chunks")
     warm_ms = 1000.0 * float(np.median(r["frame_s"][1:]))
     phase("slice", config="inb_377", side=int(round(1024 * cfg.eval_ratio)),
           rays_per_frame=r["rays"], chunk=r["chunk"], frames=len(r["frame_s"]),
           chunks_rendered=r["chunks_rendered"], knn_launches=launches,
+          encode_launches=enc[0], plain_encodes=enc[1],
           frame_ms=[f"{1000 * s:.1f}" for s in r["frame_s"]],
           warm_ms_per_frame=f"{warm_ms:.1f}",
           rays_per_s=f"{r['rays'] / (warm_ms / 1000.0):.0f}",
@@ -4014,6 +4152,9 @@ def main(argv=None) -> int:
           seconds=f"{time.perf_counter() - t0:.1f}", launches=repr(programs_launches))
     counts = {k: v + programs_launches.get(k, 0) for k, v in counts.items()}
 
+    # 17. the fused hash-grid encoding against the plain chain, and its times
+    hashgrid_res = hashgrid_slice(dev)
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -4105,6 +4246,7 @@ def main(argv=None) -> int:
         r["programs_replay_launches"] = {m: g.get(r["name"], 0)
                                          for m, g in programs_replay.items()}
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"hashgrid_encode": hashgrid_res}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -34,6 +34,9 @@ KERNELS: Dict[str, Tuple[str, ...]] = {
     "segmented_scatter": (),
     "onehot_scatter": (),
     "sorted_scatter": (),
+    # the lerp and the sums must round like the plain chain's: no fused
+    # multiply-add
+    "hashgrid_encode": ("--fmad=false",),
 }
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, Path]] = {}

@@ -42,11 +42,27 @@ scatter-add of the gather's cotangent, routed by :func:`grad_route`:
 
 The index streams are (n_lev, 8, N) arrays, level-major when flattened,
 which the kernels require.
+
+Forward routes (:func:`encode_route`).  Points on a CUDA device whose
+encoding no gradient is asked of (``torch.no_grad``, ``inference_mode``,
+or no input that requires one: the render, the evaluator, the occupancy
+cube) take the fused kernel ``csrc/hashgrid_encode.cu``
+(:func:`fused_encode`): one launch an encoder call, all part grids of
+:func:`multi_hashgrid_encode` in one, the same numbers as the plain chain
+(module doc of the kernel); a call there that the kernel cannot take
+raises ValueError with the reason (:func:`fused_refusal`).  Everything
+else takes the plain chain (:func:`hashgrid_encode_plain`,
+:func:`multi_hashgrid_encode_plain`): every training path, and the CPU,
+where it is the reference the tests hold.  ``fused_encode.launches``
+counts the kernel's launches and ``fused_encode.plain_cuda_calls`` the CUDA
+encodes that took the plain chain because a gradient was asked.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -378,9 +394,9 @@ def _hash_offsets(spec: HashGridSpec, device) -> torch.Tensor:
                            lambda: (np.arange(H) * T)[:, None, None], torch.int64)
 
 
-def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
-                    bounds: torch.Tensor) -> torch.Tensor:
-    """Encode points.  xyz (N, 3); bounds (2, 3) -> (N, out_dim)."""
+def hashgrid_encode_plain(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
+                          bounds: torch.Tensor) -> torch.Tensor:
+    """:func:`hashgrid_encode` as the plain chain of PyTorch ops."""
     N = xyz.shape[0]
     L, F = spec.n_levels, spec.n_features
     S, H = spec.start_hash, spec.n_hash_levels
@@ -417,18 +433,10 @@ def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
     return out
 
 
-def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
-                          pts: torch.Tensor, bounds: torch.Tensor,
-                          seg_sizes: Sequence[int]) -> torch.Tensor:
-    """Encode a part-major concatenation of points through P part grids.
-
-    Equal to :func:`hashgrid_encode` per part on ``pts[off_p: off_p + n_p]``
-    with ``bounds[p]``, concatenated; the index and weight math runs once
-    over all M points.  pts (M, 3), M == sum(seg_sizes); bounds (P, 2, 3).
-    Every spec shares n_levels / n_features / primes and the part-grid mode
-    (sum over features).  Returns (M, out_dim).
-    """
-    P = len(specs)
+def _check_parts(specs: Sequence[HashGridSpec], pts: torch.Tensor,
+                 seg_sizes: Sequence[int]) -> None:
+    """Raise unless the part grids share n_levels / n_features / primes and
+    the part-grid mode (sum over features), and ``seg_sizes`` covers pts."""
     s0 = specs[0]
     L, F = s0.n_levels, s0.n_features
     if not all(s.n_levels == L and s.n_features == F and s.sum
@@ -439,6 +447,17 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
     M = int(sum(seg_sizes))
     if pts.shape[0] != M:
         raise ValueError(f"pts has {pts.shape[0]} rows, seg_sizes sum to {M}")
+
+
+def multi_hashgrid_encode_plain(specs: Sequence[HashGridSpec], params_list,
+                                pts: torch.Tensor, bounds: torch.Tensor,
+                                seg_sizes: Sequence[int]) -> torch.Tensor:
+    """:func:`multi_hashgrid_encode` as the plain chain of PyTorch ops: the
+    index and weight math runs once over all M points."""
+    _check_parts(specs, pts, seg_sizes)
+    P = len(specs)
+    s0 = specs[0]
+    F = s0.n_features
     dev = pts.device
     offs = np.cumsum([0] + list(seg_sizes))
     seg = tuple(int(n) for n in seg_sizes)
@@ -484,3 +503,199 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
     if s0.include_input:
         val = torch.cat([x01, val], dim=-1)
     return val
+
+
+def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
+                    bounds: torch.Tensor) -> torch.Tensor:
+    """Encode points.  xyz (N, 3); bounds (2, 3) -> (N, out_dim).  The
+    fused kernel on the no-grad CUDA route (:func:`encode_route`), else
+    :func:`hashgrid_encode_plain`."""
+    n = (xyz.shape[0],)
+    refusal = functools.partial(fused_refusal, (spec,), (params,), xyz, bounds, n)
+    if _route(xyz.device.type, [xyz, bounds, *params.values()], refusal) == "fused":
+        return fused_encode((spec,), (params,), xyz, bounds.reshape(1, 2, 3), n,
+                            multi=False)
+    return hashgrid_encode_plain(spec, params, xyz, bounds)
+
+
+def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
+                          pts: torch.Tensor, bounds: torch.Tensor,
+                          seg_sizes: Sequence[int]) -> torch.Tensor:
+    """Encode a part-major concatenation of points through P part grids.
+
+    Equal to :func:`hashgrid_encode` per part on ``pts[off_p: off_p + n_p]``
+    with ``bounds[p]``, concatenated.  pts (M, 3), M == sum(seg_sizes);
+    bounds (P, 2, 3).  Every spec shares n_levels / n_features / primes and
+    the part-grid mode (sum over features).  Returns (M, out_dim): from one
+    launch of the fused kernel on the no-grad CUDA route
+    (:func:`encode_route`), else from :func:`multi_hashgrid_encode_plain`.
+    """
+    _check_parts(specs, pts, seg_sizes)
+    tensors = [pts, bounds] + [t for tabs in params_list for t in tabs.values()]
+    refusal = functools.partial(fused_refusal, specs, params_list, pts, bounds, seg_sizes)
+    if _route(pts.device.type, tensors, refusal) == "fused":
+        return fused_encode(specs, params_list, pts, bounds, seg_sizes, multi=True)
+    return multi_hashgrid_encode_plain(specs, params_list, pts, bounds, seg_sizes)
+
+
+# --------------------------------------------------------------------------
+# the fused forward (csrc/hashgrid_encode.cu)
+# --------------------------------------------------------------------------
+
+# what the kernel takes (its kMaxParts, kMaxLevels, kMaxStaged)
+FUSED_FEATURES = (1, 2, 4, 8, 16)
+FUSED_MAX_PARTS = 8
+FUSED_MAX_LEVELS = 32
+FUSED_MAX_STAGED = 256
+# the kernel's modes (its enum Mode)
+_SCALAR, _LEVEL_SUM, _FEATURE_SUM, _CONCAT = range(4)
+
+
+def encode_route(device_type: str, needs_grad: bool, refusal: Optional[str] = None) -> str:
+    """Where an encoder call goes: 'fused' (:func:`fused_encode`) for points
+    on a CUDA device when no gradient is asked of the encoding, else 'plain'
+    (the chain of PyTorch ops, whose table gathers carry the scatter-kernel
+    backward).  Raises ValueError on the fused route when the kernel cannot
+    take the call: ``refusal`` (:func:`fused_refusal`) says why."""
+    if device_type != "cuda" or needs_grad:
+        return "plain"
+    if refusal is not None:
+        raise ValueError(f"the fused hash-grid encoding cannot take this no-grad "
+                         f"CUDA call: {refusal}")
+    return "fused"
+
+
+def _fused_mode(spec: HashGridSpec) -> int:
+    """The kernel's mode for ``spec``: one value a row times F, the sum over
+    features (a column a level), the sum over levels, or the concat."""
+    if spec.scalar:
+        return _SCALAR
+    if spec.sum:
+        return _LEVEL_SUM if spec.sum_over_features else _FEATURE_SUM
+    return _CONCAT
+
+
+def fused_refusal(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
+                  bounds: torch.Tensor, seg_sizes: Sequence[int]) -> Optional[str]:
+    """Why the kernel cannot take this call, or None where it can: it takes
+    uniform specs within its limits, float32 points (M, 3) and bounds
+    (P, 2, 3) (or (2, 3) for one part), and tables of one dtype (float32 or
+    bfloat16), contiguous, 16-byte aligned, of the specs' shapes, on the
+    points' device."""
+    s0 = specs[0]
+    L, F = s0.n_levels, s0.n_features
+    staged = L * F if _fused_mode(s0) in (_FEATURE_SUM, _CONCAT) else L
+    if len(specs) > FUSED_MAX_PARTS:
+        return f"{len(specs)} part grids, more than {FUSED_MAX_PARTS}"
+    if F not in FUSED_FEATURES:
+        return f"{F} features a level, not one of {FUSED_FEATURES}"
+    if L > FUSED_MAX_LEVELS:
+        return f"{L} levels, more than {FUSED_MAX_LEVELS}"
+    if staged > FUSED_MAX_STAGED:
+        return f"{staged} output values a point, more than {FUSED_MAX_STAGED}"
+    if any(s.n_levels != L or s.n_features != F or s.primes != s0.primes
+           or s.scalar != s0.scalar or s.sum != s0.sum
+           or s.sum_over_features != s0.sum_over_features
+           or s.include_input != s0.include_input for s in specs):
+        return "part grids of different levels, features, primes or modes"
+    M = int(sum(seg_sizes))
+    if pts.dtype != torch.float32 or tuple(pts.shape) != (M, 3) or 3 * M >= 2 ** 31:
+        return f"points {pts.dtype} {tuple(pts.shape)}, not float32 ({M}, 3) under 2**31 values"
+    if (bounds.dtype != torch.float32 or bounds.device != pts.device
+            or bounds.numel() != 6 * len(specs)):
+        return (f"bounds {bounds.dtype} {tuple(bounds.shape)} on {bounds.device}, not "
+                f"float32 ({len(specs)}, 2, 3) on {pts.device}")
+    dtype = params_list[0]["dense"].dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        return f"{dtype} tables, not float32 or bfloat16"
+    for p, (s, tabs) in enumerate(zip(specs, params_list)):
+        cols = () if s.scalar else (F,)
+        for name, rows in (("dense", s.dense_rows), ("hash", s.hash_rows)):
+            t = tabs[name]
+            if t.dtype != dtype:
+                return f"part {p}'s {name} table is {t.dtype}, part 0's dense one {dtype}"
+            if tuple(t.shape) != (rows,) + cols or t.device != pts.device:
+                return (f"part {p}'s {name} table {tuple(t.shape)} on {t.device}, "
+                        f"not {(rows,) + cols} on {pts.device}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                return f"part {p}'s {name} table is not contiguous and 16-byte aligned"
+    return None
+
+
+def _route(device_type: str, tensors, refusal) -> str:
+    """:func:`encode_route` of a call on ``tensors`` (points, bounds,
+    tables); ``refusal()`` is asked only on the fused route.  Counts a CUDA
+    call that takes the plain chain because a gradient was asked in
+    ``fused_encode.plain_cuda_calls``."""
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    fused = device_type == "cuda" and not needs_grad
+    route = encode_route(device_type, needs_grad, refusal() if fused else None)
+    if route == "plain" and device_type == "cuda":
+        fused_encode.plain_cuda_calls += 1
+    return route
+
+
+@functools.lru_cache(maxsize=64)
+def _part_ints(specs: Tuple[HashGridSpec, ...]) -> np.ndarray:
+    """(P, 2 + 2 L) int32: each part's first hashed level, table size,
+    entries a side and dense level offsets (the kernel's Part)."""
+    L = specs[0].n_levels
+    rows = []
+    for s in specs:
+        offs = list(s.dense_offsets) + [0] * (L - len(s.dense_offsets))
+        rows.append([s.start_hash, s.table_size, *s.entries_num, *offs])
+    return np.ascontiguousarray(rows, dtype=np.int32)
+
+
+def load_fused_kernel():
+    """Build (if needed) and load ``csrc/hashgrid_encode.cu`` -> its launch
+    function.  Raises if the build fails."""
+    from ..cuda_build import load_library
+    fn = load_library("hashgrid_encode").hashgrid_encode_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_encode(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
+                 bounds: torch.Tensor, seg_sizes: Sequence[int],
+                 multi: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/hashgrid_encode.cu`` on the current stream:
+    the part-major points ``pts`` (M, 3) through the part grids ``specs``
+    with ``bounds`` (P, 2, 3) -> (M, out_dim) float32, the same floats as
+    :func:`multi_hashgrid_encode_plain` (``multi``) or, for one part,
+    :func:`hashgrid_encode_plain` computes on the card (the two sum in
+    different orders: module doc of the kernel).  The caller has checked
+    :func:`fused_refusal`.  No host sync and no allocation but the output,
+    so it runs inside a CUDA graph capture."""
+    s0 = specs[0]
+    M = int(sum(seg_sizes))
+    out = torch.empty((M, s0.out_dim), dtype=torch.float32, device=pts.device)
+    if M == 0:
+        return out
+    pts, bounds = pts.contiguous(), bounds.contiguous()
+    seg = np.cumsum([0] + [int(n) for n in seg_sizes], dtype=np.int64).astype(np.int32)
+    ptrs = np.asarray([[t["dense"].data_ptr(), t["hash"].data_ptr(),
+                        bounds.data_ptr() + 24 * p] for p, t in enumerate(params_list)],
+                      dtype=np.uint64)
+    ints = _part_ints(tuple(specs))
+    primes = np.asarray([p & 0xFFFFFFFF for p in s0.primes], dtype=np.uint32)
+    launch = load_fused_kernel()
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        err = launch(pts.data_ptr(), out.data_ptr(), M, len(specs), seg.ctypes.data,
+                     ptrs.ctypes.data, ints.ctypes.data, s0.n_levels, s0.n_features,
+                     1 if s0.scalar else s0.n_features,
+                     int(params_list[0]["dense"].dtype == torch.bfloat16),
+                     _fused_mode(s0), int(multi), int(s0.include_input), s0.out_dim,
+                     primes.ctypes.data, stream)
+    if err != 0:
+        raise RuntimeError(f"hashgrid_encode kernel launch failed: cudaError {err}")
+    fused_encode.launches += 1
+    return out
+
+
+fused_encode.launches = 0
+fused_encode.plain_cuda_calls = 0

@@ -67,7 +67,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..models import inb
-from ..ops import knn, scatter
+from ..ops import hashgrid, knn, scatter
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import RenderSpec
 from ..utils import telemetry
@@ -80,12 +80,16 @@ WARMUP_STEPS = 3
 SCHEDULE_STEPS = 4096
 
 # the counters of every kernel wrapper a captured program may launch
-# (``exact_scatter_add.calls`` counts the exact route's ``index_add_``)
+# (``exact_scatter_add.calls`` counts the exact route's ``index_add_``,
+# ``fused_encode.plain_cuda_calls`` the CUDA encodes that took the plain
+# chain because a gradient was asked)
 _COUNTERS = ((knn.knn_blend, "launches"), (knn.knn_topk, "launches"),
              (scatter.segmented_scatter_add, "launches"),
              (scatter.onehot_scatter_add, "launches"),
              (scatter.sorted_scatter_add, "launches"),
-             (scatter.exact_scatter_add, "calls"))
+             (scatter.exact_scatter_add, "calls"),
+             (hashgrid.fused_encode, "launches"),
+             (hashgrid.fused_encode, "plain_cuda_calls"))
 
 Launches = Tuple[int, ...]
 

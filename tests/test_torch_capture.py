@@ -550,7 +550,8 @@ def test_capture_and_replay_count_each_graphs_launches(monkeypatch):
     counters = [(knn.knn_blend, "launches"), (scatter.segmented_scatter_add, "launches"),
                 (scatter.onehot_scatter_add, "launches"),
                 (scatter.sorted_scatter_add, "launches"),
-                (scatter.exact_scatter_add, "calls")]
+                (scatter.exact_scatter_add, "calls"),
+                (hg.fused_encode, "launches"), (hg.fused_encode, "plain_cuda_calls")]
     for fn, attr in counters:
         monkeypatch.setattr(fn, attr, 5)
 
@@ -558,18 +559,21 @@ def test_capture_and_replay_count_each_graphs_launches(monkeypatch):
         knn.knn_blend.launches += 1
         scatter.segmented_scatter_add.launches += 8
         scatter.onehot_scatter_add.launches += 10
+        hg.fused_encode.launches += 2
         return {"loss": torch.zeros(())}
     graph, out, launches = compiled.capture(fake_step, stream=None)
     assert set(out) == {"loss"}
-    assert [getattr(f, a) for f, a in counters] == [5] * 5
-    assert dict(zip([f.__name__ for f, _ in compiled._COUNTERS], launches)) == {
-        "knn_blend": 1, "knn_topk": 0, "segmented_scatter_add": 8,
-        "onehot_scatter_add": 10, "sorted_scatter_add": 0, "exact_scatter_add": 0}
+    assert [getattr(f, a) for f, a in counters] == [5] * 7
+    assert dict(zip([f"{f.__name__}.{a}" for f, a in compiled._COUNTERS], launches)) == {
+        "knn_blend.launches": 1, "knn_topk.launches": 0,
+        "segmented_scatter_add.launches": 8, "onehot_scatter_add.launches": 10,
+        "sorted_scatter_add.launches": 0, "exact_scatter_add.calls": 0,
+        "fused_encode.launches": 2, "fused_encode.plain_cuda_calls": 0}
     _StubGraph.replays = 0
     for _ in range(3):
         compiled.replay(graph, launches)
     assert _StubGraph.replays == 3
-    assert [getattr(f, a) for f, a in counters] == [8, 29, 35, 5, 5]
+    assert [getattr(f, a) for f, a in counters] == [8, 29, 35, 5, 5, 11, 5]
 
 
 def test_workspaces_refuse_a_first_use_under_capture(monkeypatch):
