@@ -6,9 +6,13 @@ Seeds: every draw of a run derives from ``--seed`` through
 :func:`derive`, a ``numpy`` ``SeedSequence`` over (seed, stream, ...), so
 any whole number is a seed and two streams never share draws.  The weights
 are drawn on the device by the reference's ``init_params`` from a
-``torch.Generator`` seeded by ``derive(seed, "weights")``, then loaded into
-the program's model: the program and the reference start from the same
-tensors, which neither side made.
+``torch.Generator`` seeded by ``derive(seed, "weights")``; the same
+generator then redraws each hash table, level by level, as normal entries
+at the root-mean-square a fit left it at (the configuration's
+``table_scales`` file, written by ``measure_scales.py``), so that the
+encodings move the outputs as a trained model's do.  The weights are then
+loaded into the program's model: the program and the reference start from
+the same tensors, which neither side made.
 """
 from __future__ import annotations
 
@@ -99,12 +103,56 @@ def control_precision(control: str = ""):
                                else hashgrid.LERP_DTYPE)
 
 
-def harness_weights(cfg, seed: int, device: torch.device) -> Dict[str, torch.Tensor]:
-    """The initial weights of a run: the reference's ``init_params`` on
-    ``device`` from a generator seeded by the run's seed, as a state dict."""
+def hash_tables(spec):
+    """(parameter name, level offsets) of every hash table of the
+    reference's model spec ``spec``: rows ``offsets[l]:offsets[l + 1]``
+    hold level l."""
+    out = []
+    for part, hs in zip(spec.partnames, spec.part_embeds):
+        out += [(f"embed.{part}.{name}", offs) for name, _, offs in hs.tables()]
+    return out + [(f"deformer.embed.{name}", offs)
+                  for name, _, offs in spec.deformer.embed.tables()]
+
+
+def table_scales(ctx) -> Dict[str, list]:
+    """{table: per-level root-mean-square} of the configuration's
+    ``table_scales`` file (a path from the checkout's root)."""
+    with open(Path(ctx.root) / ctx.doc["table_scales"]) as f:
+        doc = yaml.safe_load(f)
+    return {name: list(levels["rms"]) for name, levels in doc["tables"].items()}
+
+
+def draw_tables(model, spec, scales: Dict[str, list], gen: torch.Generator) -> None:
+    """Redraw every hash table of ``model`` in place: level l's entries
+    N(0, scales[table][l]^2), one draw a table from ``gen``."""
+    params = dict(model.named_parameters())
+    tables = hash_tables(spec)
+    if sorted(scales) != sorted(n for n, _ in tables):
+        raise ValueError(f"the scales name {sorted(scales)}, the model's hash "
+                         f"tables are {sorted(n for n, _ in tables)}")
+    with torch.no_grad():
+        for name, offs in tables:
+            t = params[name]
+            if len(scales[name]) != len(offs) - 1 or offs[-1] != t.shape[0]:
+                raise ValueError(f"{name}: {len(scales[name])} scales for "
+                                 f"{len(offs) - 1} levels of {t.shape[0]} rows")
+            rms = torch.tensor(scales[name], dtype=t.dtype, device=t.device)
+            rows = torch.tensor(np.diff(offs), device=t.device)
+            per_row = torch.repeat_interleave(rms, rows).reshape((-1,) + (1,) * (t.ndim - 1))
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device, dtype=t.dtype)
+                    * per_row)
+
+
+def harness_weights(ctx, cfg_path: str) -> Dict[str, torch.Tensor]:
+    """The initial weights of a run, as a state dict on ``ctx.device``: the
+    reference's ``init_params`` from a generator seeded by the run's seed,
+    then the hash tables redrawn by the same generator at the
+    configuration's ``table_scales`` (:func:`draw_tables`)."""
     from .reference.models import inb as ref_inb
-    gen = torch.Generator(device=device).manual_seed(derive(seed, "weights"))
-    model = ref_inb.init_params(ref_inb.build_model_spec(cfg), gen, device)
+    spec = ref_inb.build_model_spec(reference_config(cfg_path))
+    gen = torch.Generator(device=ctx.device).manual_seed(derive(ctx.args.seed, "weights"))
+    model = ref_inb.init_params(spec, gen, ctx.device)
+    draw_tables(model, spec, table_scales(ctx), gen)
     return {k: v.detach() for k, v in model.state_dict().items()}
 
 

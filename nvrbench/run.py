@@ -128,8 +128,8 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cpu: the rehearsal at small sizes (with --overrides)")
     p.add_argument("--overrides", default="",
-                   help="a YAML file whose config, subject and workload "
-                        "mappings merge over the cell's (the tests' small sizes)")
+                   help="a YAML file whose config, subject, table_scales and "
+                        "workload merge over the cell's (the tests' small sizes)")
     p.add_argument("--control", default="",
                    help="run the reference in the control's lower precision "
                         "in the program's place (the control's test): "
@@ -178,7 +178,8 @@ def main(argv=None) -> int:
     workload = load_yaml(PKG / "workloads" / f"{cell['name']}.yaml")
     if args.overrides:
         over = load_yaml(Path(args.overrides))
-        doc = merge(doc, {k: over[k] for k in ("config", "subject") if k in over})
+        doc = merge(doc, {k: over[k] for k in ("config", "subject", "table_scales")
+                         if k in over})
         workload = merge(workload, over.get("workload", {}))
     kind = importlib.import_module(f"nvrbench.traffic.{cell['traffic']}")
     ctx = SimpleNamespace(args=args, root=ROOT, cache=cache, cell=cell,

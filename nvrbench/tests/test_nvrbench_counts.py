@@ -188,3 +188,61 @@ def test_scatter_roofline_readers_match_their_kernels_only():
     assert got["onehot_scatter_roofline.fit"] == pytest.approx(50.0)
     r.kind = "render"
     assert mod.read(r) is None
+
+
+def test_hashgrid_encode_bound_by_hand():
+    # 10 points of 2 parts into a 5-wide output, 100 B of distinct rows
+    assert counts.hashgrid_encode_bound_s(10, 2, 5, 100) == pytest.approx(
+        (10 * 12 + 2 * 24 + 10 * 5 * 4 + 100) / 3.35e12)
+
+
+def test_encode_bounds_count_each_launch_by_hand():
+    """Two dense levels of 2^3 and 3^3 rows (offsets 0 and 8): points in
+    [0.05, 0.2]^3 touch one cell of each level, 8 + 8 rows; points all over
+    the box touch every row, 8 + 27.  The part grids (scalar float32 rows,
+    4 B) and the deformer (F = 2 float32 columns, 8 B a row) each count as
+    one launch, and nothing is observed after the block."""
+    import torch
+    from nvrbench.reference.models import deformer, inb
+    from nvrbench.reference.ops import hashgrid
+    kw = dict(n_levels=2, n_features_per_level=2, log2_hashmap_size=6,
+              base_resolution=2, b=1.5)
+    part = hashgrid.make_hashgrid_spec(**kw)
+    grid = hashgrid.make_hashgrid_spec(**kw, sum=False)
+    assert part.scalar and not grid.scalar and part.dense_total == 35
+    assert [t[0] for t in part.tables()] == ["dense"]
+    gen = torch.Generator().manual_seed(0)
+    corner = 0.05 + 0.15 * torch.rand((50, 3), generator=gen)
+    spread_ = 0.01 + 0.98 * torch.rand((400, 3), generator=gen)
+    unit = torch.tensor([[0.0] * 3, [1.0] * 3])
+    tables = lambda s: hashgrid.hashgrid_init(s, gen, "cpu")   # noqa: E731
+    with counts.encode_bounds() as launches:
+        inb.multi_hashgrid_encode([part, part], [tables(part), tables(part)],
+                                  torch.cat([corner, spread_]), torch.stack([unit, unit]),
+                                  [50, 400])
+        deformer.hashgrid_encode(grid, tables(grid), corner, unit)
+    deformer.hashgrid_encode(grid, tables(grid), corner, unit)
+    assert hashgrid._OBSERVED is None and len(launches) == 2
+    parts = 450 * 12 + 2 * 24 + 450 * (2 + 3) * 4 + (16 + 35) * 4
+    grid_b = 50 * 12 + 24 + 50 * (2 * 2 + 3) * 4 + 16 * 8
+    assert [e for e, _ in launches] == ["parts", "deformer"]
+    assert [s for _, s in launches] == pytest.approx([parts / 3.35e12, grid_b / 3.35e12])
+
+
+def test_hashgrid_roofline_reader_takes_the_fused_kernel_only():
+    import importlib.util
+    from pathlib import Path
+    path = Path(counts.__file__).parent / "metrics" / "hashgrid_encode_roofline.render.py"
+    spec = importlib.util.spec_from_file_location("hashgrid_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kernel_s = {"hashgrid_encode_kernel(Params, float const*, float*)": 0.004,
+                "void at::native::index_elementwise_kernel<float>(float*)": 0.5}
+    r = SimpleNamespace(kind="render", trace={"kernel_s": kernel_s}, trace_units=2,
+                        encode_bound_s=0.5e-3)
+    # 2 frames of a 0.5 ms bound in 4 ms of the kernel
+    assert mod.read(r) == pytest.approx(25.0)
+    r.encode_bound_s = None
+    assert mod.read(r) is None
+    r.kind, r.encode_bound_s = "fit", 0.5e-3
+    assert mod.read(r) is None

@@ -54,3 +54,23 @@ def test_summarize_without_a_window_or_device_work():
     cpu = DeviceType.CPU
     assert trace.summarize([ev("gemm", 0, 1)]) is None
     assert trace.summarize([ev(trace.WINDOW, 0, 10, cpu)]) is None
+
+
+def test_gaps_take_the_innermost_span_the_harness_or_the_program_opened():
+    cpu = DeviceType.CPU
+    events = [
+        ev(trace.WINDOW, 0, 100, cpu),
+        ev("nvrbench.step", 0, 60, cpu),
+        ev("nvr.step", 5, 55, cpu),             # the program's, inside the harness's
+        ev("nvr.step.fill", 10, 30, cpu),       # nested inside nvr.step
+        ev("aten::copy_", 12, 14, cpu),         # neither's: labels nothing
+        ev("nvrbench.frame", 60, 100, cpu),
+        ev("gemm", 0, 10),
+        ev("gemm", 20, 40),                     # 10-20 begins under nvr.step.fill
+        ev("gemm", 50, 70),                     # 40-50 under nvr.step
+        ev("gemm", 57, 58),
+        ev("gemm", 80, 90),                     # 70-80 under nvrbench.frame only
+    ]
+    gaps = dict(trace.summarize(events)["idle_gaps"])
+    assert gaps == pytest.approx({"nvr.step.fill": 10e-6, "nvr.step": 10e-6,
+                                  "nvrbench.frame": 20e-6})

@@ -2,7 +2,8 @@
 as the union of the kernels' and copies' intervals (a copy under a kernel
 counts once; the annotation ranges drawn on the device timeline are left
 out), device time by kernel name, and the idle gaps of the device labelled
-by the harness's host span that was open when each began.
+by the innermost host span open when each began: the harness's
+(``nvrbench.``) or the program's (``nvr.``, its ``utils/telemetry.py``).
 
 :func:`busy_us` is the union of intervals (the port's
 ``utils/intervals.py:busy_us``, copied); :func:`summarize` reads the
@@ -17,6 +18,8 @@ WINDOW = "nvrbench.window"
 # an idle stretch of the device shorter than this is launch spacing, not a gap
 MIN_GAP_US = 5.0
 TOP = 10
+# the host spans that label a gap: the harness's and the program's
+SPAN_PREFIXES = ("nvrbench.", "nvr.")
 
 
 def merge_intervals(intervals: Iterable[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -61,7 +64,7 @@ def label_gaps(idle: Sequence[Tuple[float, float]],
     return out
 
 
-def summarize(events, prefix: str = "nvrbench.") -> Optional[Dict]:
+def summarize(events) -> Optional[Dict]:
     """The window's numbers from a profiler's ``events()``: ``busy_s``,
     ``window_s``, ``kernel_s`` (device seconds by kernel name),
     ``device_ops`` and ``idle_gaps`` (the ten largest, as [name, seconds]);
@@ -73,7 +76,7 @@ def summarize(events, prefix: str = "nvrbench.") -> Optional[Dict]:
         if e.device_type == DeviceType.CUDA:
             if not getattr(e, "is_user_annotation", False):
                 dev.append((tr.start, tr.end, e.name))
-        elif e.name.startswith(prefix):
+        elif e.name.startswith(SPAN_PREFIXES):
             spans.append((tr.start, tr.end, e.name))
     win = [(s, t) for s, t, n in spans if n == WINDOW]
     if not win:

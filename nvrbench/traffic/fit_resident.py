@@ -24,7 +24,7 @@ def run(ctx):
     wl, seed = ctx.workload, ctx.args.seed
     subject_root = common.ensure_subject(ctx)
     cfg_path = common.run_config_path(ctx, subject_root)
-    weights = common.harness_weights(common.reference_config(cfg_path), seed, ctx.device)
+    weights = common.harness_weights(ctx, cfg_path)
     w0 = [v.float().cpu().clone() for v in weights.values()]
     prog = fitcore.setup_program(ctx, cfg_path, weights)
     del weights

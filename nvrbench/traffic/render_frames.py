@@ -11,8 +11,14 @@ The check: once the window has closed, ``n_check`` frames of the window,
 drawn from the seed, are rendered again by the reference (the port's plain
 route, frozen) on items it builds from the subject's files itself, in
 chunks of ``ref_chunk`` rays with budgets that keep every sample; the
-number compared is the worst frame's root-mean-square gap over the colour
-and opacity maps (``map_rms_gap``).
+numbers compared are the worst frame's root-mean-square gap over the
+colour and opacity maps (``map_rms_gap``) and the worst frame's median gap
+over the subject's pixels (``map_median_gap``: a pixel's largest gap over
+its colour and opacity, where the reference's opacity is 0.5 or more),
+which a precision lost everywhere moves and a few rays flipped by rounding
+do not.  With ``--trace 1`` the reference then
+renders the traced frames again as the program did, at its budgets, to
+count the fused encoding's bound (:func:`encode_bound_s`).
 
 Parameters (``nvrbench/workloads/<cell>.yaml``): ``n_items``, ``n_check``,
 ``ref_chunk``, ``trace_start``, ``trace_frames`` and the check's ``limits``.
@@ -73,29 +79,25 @@ def warm(renderer, model, items) -> int:
     raise RuntimeError("the renderer kept raising budgets or capturing after 7 passes")
 
 
-def reference_frame(cfg_path: str, ctx, weights, index: int,
-                    control: str = "") -> Dict[str, np.ndarray]:
-    """The reference's maps of test item ``index``: the item built from the
-    subject's files, rendered in chunks with budgets that keep every sample."""
+def render_item(ctx, cfg, spec, weights, index: int, chunk: int, n_chunks: int = 0,
+                control: str = "") -> Dict[str, np.ndarray]:
+    """The reference's maps of test item ``index``, built from the subject's
+    files, under its model spec ``spec`` in chunks of ``chunk`` rays:
+    ``n_chunks`` of them, else as many as the rays fill, the last filled
+    with the first rays again (a budget rounds up to 128 samples, which a
+    short chunk may not hold)."""
     from ..reference.datasets.tpose_dataset import TPoseDataset
     from ..reference.models import inb
     from ..reference.renderer.inb_renderer import make_render_spec, render_rays
     device = ctx.device
-    cfg = common.reference_config(cfg_path, control).merged(
-        {"cull_budget": 1.0, "part_budget": 1.0,
-         "part_budget_scales": [1.0] * 5})
-    spec = inb.build_model_spec(cfg)
     rspec = make_render_spec(cfg)
     model = inb.InbModel(spec, device)
     model.load_state_dict({k: v.to(device) for k, v in weights.items()})
     item = TPoseDataset(cfg, "test").get_item(index)
     meta = {k: torch.from_numpy(np.ascontiguousarray(item[k])).to(device)
             for k in META_KEYS if k in item}
-    chunk = int(ctx.workload["ref_chunk"])
     n = item["ray_o"].shape[0]
-    # whole chunks, the last one filled with the first rays again (a budget
-    # rounds up to 128 samples, which a short chunk may not hold)
-    idx = np.arange(-(-n // chunk) * chunk) % n
+    idx = np.arange((n_chunks or -(-n // chunk)) * chunk) % n
     out = {k: [] for k in MAP_KEYS}
     with torch.no_grad(), common.control_precision(control):
         for s in range(0, len(idx), chunk):
@@ -104,10 +106,22 @@ def reference_frame(cfg_path: str, ctx, weights, index: int,
                       for k in RAY_KEYS})
             ret = render_rays(spec, rspec, model, b, train=False)
             if float(ret["cull_overflow"]) > 0 or float(ret["part_overflow"]) > 0:
-                raise RuntimeError("the reference's full budgets overflowed")
+                raise RuntimeError("the reference's budgets overflowed")
             for k in MAP_KEYS:
                 out[k].append(ret[k].float().cpu().numpy())
     return {k: np.concatenate(v)[:n] for k, v in out.items()}
+
+
+def reference_frame(cfg_path: str, ctx, weights, index: int,
+                    control: str = "") -> Dict[str, np.ndarray]:
+    """The check's maps of test item ``index``: the reference (or
+    ``control``) with budgets that keep every sample, in chunks of
+    ``ref_chunk`` rays."""
+    from ..reference.models import inb
+    cfg = common.reference_config(cfg_path, control).merged(
+        {"cull_budget": 1.0, "part_budget": 1.0, "part_budget_scales": [1.0] * 5})
+    return render_item(ctx, cfg, inb.build_model_spec(cfg), weights, index,
+                       int(ctx.workload["ref_chunk"]), control=control)
 
 
 def map_rms_gap(got: Dict[str, np.ndarray], ref: Dict[str, np.ndarray]) -> float:
@@ -115,6 +129,45 @@ def map_rms_gap(got: Dict[str, np.ndarray], ref: Dict[str, np.ndarray]) -> float
     return max(float(np.sqrt(np.mean((np.asarray(got[k], np.float64)
                                       - np.asarray(ref[k], np.float64)) ** 2)))
                for k in MAP_KEYS)
+
+
+def encode_bound_s(cfg_path: str, ctx, weights, items: List[int], budgets,
+                   chunk: int, n_chunks: int, summary: Dict) -> float:
+    """``hashgrid_encode_kernel``'s bound a traced frame: the reference
+    renders each traced frame's test item as the program's frame (its
+    budgets, chunks and padding) and counts every encoding
+    (``counts.encode_bounds``); printed by encoder beside the kernel's
+    device time by name."""
+    from ..reference.models import inb
+    cfg = common.reference_config(cfg_path)
+    spec = counts.raised_spec(inb.build_model_spec(cfg), budgets)
+    by = {}
+    with counts.encode_bounds() as launches:
+        for index in items:
+            render_item(ctx, cfg, spec, weights, index, chunk, n_chunks)
+    for encoder, s in launches:
+        by[encoder] = by.get(encoder, 0.0) + s / len(items)
+    kernels = {n: v / len(items) for n, v in (summary or {}).get("kernel_s", {}).items()
+               if "hashgrid_encode" in n}
+    print(f"nvrbench: hashgrid_encode bound a frame by encoder {by} "
+          f"({len(launches)} launches in {len(items)} frames); device s a frame "
+          f"by kernel {kernels}", file=sys.stderr, flush=True)
+    return sum(by.values())
+
+
+# a pixel of the subject: the reference's opacity at least this
+SUBJECT_ACC = 0.5
+
+
+def map_median_gap(got: Dict[str, np.ndarray], ref: Dict[str, np.ndarray]) -> float:
+    """The median over the subject's pixels of a pixel's largest gap over
+    its colour channels and opacity."""
+    gap = np.abs(np.asarray(got["rgb_map"], np.float64) - np.asarray(ref["rgb_map"], np.float64))
+    gap = np.maximum(gap.reshape(gap.shape[0], -1).max(1),
+                     np.abs(np.asarray(got["acc_map"], np.float64)
+                            - np.asarray(ref["acc_map"], np.float64)).reshape(-1))
+    subject = np.asarray(ref["acc_map"]).reshape(-1) >= SUBJECT_ACC
+    return float(np.median(gap[subject])) if subject.any() else float(np.median(gap))
 
 
 def run(ctx):
@@ -126,7 +179,7 @@ def run(ctx):
     wl, seed = ctx.workload, ctx.args.seed
     subject_root = common.ensure_subject(ctx)
     cfg_path = common.run_config_path(ctx, subject_root)
-    weights = common.harness_weights(common.reference_config(cfg_path), seed, ctx.device)
+    weights = common.harness_weights(ctx, cfg_path)
     w_host = {k: v.cpu() for k, v in weights.items()}
     device = resolve_device(str(ctx.device))
     cfg = common.program_config(cfg_path)
@@ -197,7 +250,7 @@ def run(ctx):
     r = SimpleNamespace(kind="render", setup_s=setup_s, window_s=wall, frames=frames,
                         memory_peak_bytes=peak, power_limit=common.power_limit(device),
                         trace=None, flops=None, knn_bound_s=None, trace_units=0,
-                        attempted=frames)
+                        encode_bound_s=None, attempted=frames)
     if traced is not None:
         prof, n = traced
         r.trace = tr.summarize(prof.events())
@@ -219,6 +272,8 @@ def run(ctx):
         r.flops = flops
         K, _ = ref_inb.budgets(spec, n_chunk)
         r.knn_bound_s = frame_chunks * counts.knn_blend_bound_s(K, real, spec.num_parts)
+        raised = renderer.mspec
+        traced_items = [indices[order[f]] for f in range(trace_at[0], trace_at[0] + n)]
 
     # the program's state goes before the reference runs
     del renderer, model
@@ -229,15 +284,23 @@ def run(ctx):
     n_check = min(int(wl["n_check"]), frames)
     check_frames = sorted(common.rng(seed, "check").choice(frames, size=n_check,
                                                            replace=False).tolist())
-    gaps = []
+    gaps, medians = [], []
     for f in check_frames:
         ref = reference_frame(cfg_path, ctx, w_host, indices[order[f]])
         got = (reference_frame(cfg_path, ctx, w_host, indices[order[f]],
                                control=ctx.args.control)
                if ctx.args.control else outs[f])
         gaps.append(map_rms_gap(got, ref))
-    r.numbers = {"map_rms_gap": max(gaps), "frames_checked": len(gaps),
-                 "items": items_n}
+        medians.append(map_median_gap(got, ref))
+        print(f"nvrbench: checked frame {f} (item {indices[order[f]]}): rms gap {gaps[-1]!r}, "
+              f"median gap {medians[-1]!r} over "
+              f"{float(np.mean(ref['acc_map'] >= SUBJECT_ACC)):.4f} of the pixels",
+              file=sys.stderr, flush=True)
+    r.numbers = {"map_rms_gap": max(gaps), "map_median_gap": max(medians),
+                 "frames_checked": len(gaps), "items": items_n}
+    if traced is not None:
+        r.encode_bound_s = encode_bound_s(cfg_path, ctx, w_host, traced_items, raised,
+                                          chunk, per_frame[0], r.trace)
     r.checks, r.correct = fitcore.judge(r.numbers, wl["limits"])
     r.failed = 0 if r.correct else 1
     return r
