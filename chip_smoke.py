@@ -235,8 +235,24 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      chain's event and device ms, the bound (the points, the
      distinct table rows the plain chain gathers and the output, each
      once, over 3.35 TB/s) and the share.
-     Phases 4 and 5 also assert the route: 2 launches a render chunk and
-     no plain CUDA encode; no launch in a train step.
+     Phases 4 and 5 also assert the route: 2 forward launches a render
+     chunk and no backward; in a train step one forward and one backward
+     launch an encoder call (``train.step.encoder_calls``), and phases 15
+     and 16 hold each replay to them (the forward twice under ``remat``).
+ 18. the encoding's backward (``hashgrid_backward_kernel``, through the
+     autograd Function ``ops/hashgrid.py:fused_autograd_encode``) at a fit
+     step's shapes (``tests/test_torch_hashgrid_fused.py``'s
+     ``BACKWARD_CASES``: the part grids over the 90,112 budget slots, the
+     deformer over the same slots and over the pair term's 1,024; tables at
+     std 0.1 and 1.0): the records handed to the scatters bit-equal to the
+     plain chain's autograd's, the points' gradient bit-equal to the plain
+     PyTorch twin on the card and within ``POINTS_LIMIT`` of the term scale
+     of a float64 chain, which the bf16-lerp control must fail; then each
+     of a fit step's three encoder calls at its shape: forward and
+     backward through the plain chain and through the Function (event and
+     device ms), the backward kernel's device ms alone, its bound (the
+     points, the cotangent, the records, the points' gradient and the
+     distinct rows gathered, each once, over 3.35 TB/s) and share.
 Then one JSON line of kernel numbers (launches: the render, train,
 self-check, patch, evaluate, data-parallel, real-subject, orbax,
 completion, bench, captured and programs phases together, each row also with ``orbax_launches``; a KNN row's times are the render
@@ -257,7 +273,8 @@ graphs' launches a replay, ``captured_replay_launches``, phase 16's,
 has its uniform-keys case with the train step's records beside it, its
 times under the deterministic flag and the summed times of a
 ``fix_random`` patch step's 18 sorted calls), one JSON line of phase 17's
-numbers (``hashgrid_encode``), the ``nvidia-smi`` name/power line, and last
+numbers (``hashgrid_encode``), one of phase 18's (``hashgrid_backward``),
+the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import copy
@@ -848,7 +865,7 @@ def reset_counts(knn, scatter):
     scatter.exact_scatter_add.calls = 0
     from instant_nvr_tpu_torch.ops import hashgrid
     hashgrid.fused_encode.launches = 0
-    hashgrid.fused_encode.plain_cuda_calls = 0
+    hashgrid.fused_encode_backward.launches = 0
 
 
 def launch_counts(knn, scatter):
@@ -899,9 +916,10 @@ def train_slice(cfg, dev, knn, scatter):
     import numpy as np
     import torch
     from instant_nvr_tpu_torch import bench, train_net
-    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    from instant_nvr_tpu_torch.train.step import encoder_calls, table_grad_launches
     trainer = train_net.build_trainer(cfg, dev, seed=0)
     routes = table_grad_launches(trainer.mspec, trainer.rspec)
+    calls = encoder_calls(trainer.rspec)
     gen = torch.Generator(device=dev)
     n_rays = int(trainer.batch["ray_o"].shape[0])
     torch.cuda.synchronize()
@@ -934,9 +952,10 @@ def train_slice(cfg, dev, knn, scatter):
         raise AssertionError(f"launches {counts} != {want} (routes per step "
                              f"{dict(routes)}, exact index_add_ calls {exact_calls})")
     from instant_nvr_tpu_torch.ops import hashgrid
-    if hashgrid.fused_encode.launches:
-        raise AssertionError(f"train steps launched the fused encoder "
-                             f"{hashgrid.fused_encode.launches} times")
+    enc = (hashgrid.fused_encode.launches, hashgrid.fused_encode_backward.launches)
+    if enc != (steps * calls, steps * calls):
+        raise AssertionError(f"train steps' encoders: (forward, backward) launches {enc} "
+                             f"!= {calls} of each a step over {steps} steps")
     med = rates[len(rates) // 2]
     phase("train", config="inb_377", rays=n_rays, samples=trainer.rspec.n_samples,
           steps=steps, windows=f"{bench.WINDOWS}x{bench.STEPS_PER_WINDOW}",
@@ -945,8 +964,8 @@ def train_slice(cfg, dev, knn, scatter):
           peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{loss[0]:.5f}",
           loss_last=f"{loss[-1]:.5f}", routes_per_step=repr(dict(routes)),
           launches=repr(counts), route=repr(str(trainer.route)),
-          encode_launches=hashgrid.fused_encode.launches,
-          plain_encodes_per_step=f"{hashgrid.fused_encode.plain_cuda_calls / steps:g}")
+          encode_launches=enc[0], encode_backward_launches=enc[1],
+          encoder_calls_per_step=f"{enc[1] / steps:g}")
     busy, top_kernels, top_ops = profile_steps(trainer, gen)
     phase("train-profile", steps=PROFILE_STEPS,
           device_busy=("not measured" if busy is None else f"{busy:.3f}"),
@@ -3088,12 +3107,10 @@ def params_agree(label, a, b, lr, steps):
 
 
 def graph_launches(step):
-    """The launches one replay of each of ``step``'s graphs counts, by kernel
-    (``fused_encode.plain_cuda_calls`` counts the plain chain's calls, not a
-    kernel's launches: left out)."""
+    """The launches one replay of each of ``step``'s graphs counts, by kernel."""
     from instant_nvr_tpu_torch.train import compiled
     names = [(i, f.__name__ if attr == "launches" else "exact_index_add")
-             for i, (f, attr) in enumerate(compiled._COUNTERS) if attr != "plain_cuda_calls"]
+             for i, (f, attr) in enumerate(compiled._COUNTERS)]
     return [{n: g.launches[i] for i, n in names if g.launches[i]}
             for g in step.graphs.values() if g.graph is not None]
 
@@ -3107,8 +3124,10 @@ def captured_training(cfg, dev, knn, scatter, routes):
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
-    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    from instant_nvr_tpu_torch.train.step import encoder_calls, table_grad_launches
     lr = cfg.train.lr
+    calls = encoder_calls(make_render_spec(cfg))
+    encoders = {"fused_encode": calls, "fused_encode_backward": calls}
     batches = {"mse": (train_net.synthetic_batch(cfg, dev), None),
                "patch": (train_net.to_tensors(bench.patch_batch_np(cfg), dev),
                          make_patch_loss_fn(cfg))}
@@ -3128,7 +3147,7 @@ def captured_training(cfg, dev, knn, scatter, routes):
                 "sorted_scatter_add": 0}
         graphs = graph_launches(step)
         one = {"knn_blend": 1, "segmented_scatter_add": routes["segmented"],
-               "onehot_scatter_add": routes["onehot"]}
+               "onehot_scatter_add": routes["onehot"], **encoders}
         if got_c != want or got_e != want or graphs != [one] \
                 or (step.captures, step.replays) != (1, CAPTURE_STEPS - 3):
             raise AssertionError(f"captured {mode}: launches {got_c} (eager {got_e}) != "
@@ -3174,7 +3193,8 @@ def captured_training(cfg, dev, knn, scatter, routes):
             "sorted_scatter_add": CAPTURE_STEPS * FIX_ROUTES_PER_STEP}
     graphs = graph_launches(step)
     if froutes != {"sorted": FIX_ROUTES_PER_STEP} or got_c != want or got_e != want \
-            or graphs != [{"knn_blend": 1, "sorted_scatter_add": FIX_ROUTES_PER_STEP}]:
+            or graphs != [{"knn_blend": 1, "sorted_scatter_add": FIX_ROUTES_PER_STEP,
+                           **encoders}]:
         raise AssertionError(f"captured fix_random: routes {froutes}, launches {got_c} "
                              f"(eager {got_e}) != {want}; a replay {graphs}")
     per_replay["fix_random"] = graphs[0]
@@ -3472,7 +3492,7 @@ def programs_training(dev, knn, scatter):
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
-    from instant_nvr_tpu_torch.train.step import table_grad_launches
+    from instant_nvr_tpu_torch.train.step import encoder_calls, table_grad_launches
     base = make_cfg(CFG).merged({"ep_iter": CAPTURE_EP_ITER})
     batches = {"mse": (train_net.synthetic_batch(base, dev), None),
                "patch": (train_net.to_tensors(bench.patch_batch_np(base), dev),
@@ -3485,6 +3505,8 @@ def programs_training(dev, knn, scatter):
             total[k] = total.get(k, 0) + v
 
     def check_launches(label, run, routes, knn_per_step):
+        # the forward runs each encoder as often as knn_blend (twice under
+        # remat), its backward once
         want = {"knn_blend": CAPTURE_STEPS * knn_per_step, "knn_topk": 0,
                 "segmented_scatter_add": CAPTURE_STEPS * routes["segmented"],
                 "onehot_scatter_add": CAPTURE_STEPS * routes["onehot"],
@@ -3492,7 +3514,9 @@ def programs_training(dev, knn, scatter):
         one = {k: n for k, n in (("knn_blend", knn_per_step),
                                  ("segmented_scatter_add", routes["segmented"]),
                                  ("onehot_scatter_add", routes["onehot"]),
-                                 ("sorted_scatter_add", routes["sorted"])) if n}
+                                 ("sorted_scatter_add", routes["sorted"]),
+                                 ("fused_encode", calls * knn_per_step),
+                                 ("fused_encode_backward", calls)) if n}
         graphs = graph_launches(run["step"]) if "captured" in label else [one]
         if run["launches"] != want or graphs != [one] or routes["exact"] or (
                 "captured" in label and run["captured"] != (1, CAPTURE_STEPS - 3)):
@@ -3503,6 +3527,7 @@ def programs_training(dev, knn, scatter):
     for name, over in PROGRAM_VARIANTS:
         cfg = base.merged(over)
         routes = table_grad_launches(inb.build_model_spec(cfg), make_render_spec(cfg))
+        calls = encoder_calls(make_render_spec(cfg))
         # remat runs the forward, and its knn_blend, again in the backward
         knn_per_step = 2 if cfg.get("remat", False) else 1
         for mode, (batch, pfn) in batches.items():
@@ -3915,6 +3940,101 @@ def hashgrid_slice(dev):
     return out
 
 
+def hashgrid_backward_slice(dev):
+    """Phase 18 (see the module doc) -> its numbers by encoder call."""
+    import torch
+    from instant_nvr_tpu_torch.config import make_cfg
+    from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.ops import hashgrid
+    t = hashgrid_cases_module()
+    t0 = time.perf_counter()
+    out = {"cases": {}}
+    for case in t.BACKWARD_CASES:
+        for std in t.SCALES:
+            r = t.backward_case(case, dev, std=std)
+            out["cases"][f"{case}@{std}"] = r
+            phase("hashgrid-backward-vs-plain", case=case, std=std, points=r["points"],
+                  records=r["records"], records_equal=r["records_equal"],
+                  forward_equal=r["forward_equal"],
+                  points_bit_equal_twin=r["points_bit_equal_twin"],
+                  points_vs_float64=repr(r["points_vs_float64"]),
+                  plain_vs_float64=repr(r["plain_vs_float64"]),
+                  bf16_lerp_vs_float64=repr(r.get("bf16_lerp_vs_float64")),
+                  limit=f"{t.POINTS_LIMIT:g} of the term scale")
+            bad = (not (r["records_equal"] and r["forward_equal"] and r["points_bit_equal_twin"]
+                        and r["points_vs_float64"]["ok"])
+                   or r["points_vs_float64"]["cells_differ"] >= 0.001 * r["points"]
+                   or r.get("bf16_lerp_vs_float64", {"ok": False})["ok"])
+            if bad:
+                raise AssertionError(f"hashgrid backward {case} std {std}: {r}")
+            torch.cuda.empty_cache()
+    phase("hashgrid-backward-cases", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # each encoder call of a fit step at its shape: forward and backward
+    # through the plain chain's autograd and through the Function, and the
+    # backward kernel alone
+    mspec = inb.build_model_spec(make_cfg(CFG))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fit = (sum(t.FIT_SEGMENTS),)
+    for enc, kind, specs, dtype, segs in (
+            ("parts", "multi", mspec.part_embeds, torch.bfloat16, t.FIT_SEGMENTS),
+            ("deformer", "single", (mspec.deformer.embed,), torch.float32, fit),
+            ("pair_deformer", "single", (mspec.deformer.embed,), torch.float32,
+             (t.PAIR_SLOTS,))):
+        tables = t.draw_tables(specs, 0.1, dtype, gen, dev)
+        pts, bounds, segs = t.draw_points(specs, kind, gen, dev, segs)["box"]
+        b = bounds if kind == "multi" else bounds[:1]
+        M, D = sum(segs), specs[0].out_dim
+        need_pts = kind == "multi"      # the fit asks the part grids' points alone
+        leaves = t.leaf_tables(tables)
+        x = pts.clone().requires_grad_(need_pts)
+        wrt = [v for tab in leaves for v in tab.values()] + ([x] if need_pts else [])
+        g = torch.randn((M, D), generator=gen, device=dev)
+
+        def fwd_bwd(fn):
+            return lambda: torch.autograd.grad(fn(kind, specs, leaves, x, bounds, segs), wrt, g)
+        plain, fused = fwd_bwd(t.plain_fn), fwd_bwd(t.function_fn)
+        dtype_p = hashgrid.payload_dtype(specs[0], dtype)
+        kernel = lambda: hashgrid.fused_encode_backward(  # noqa: E731
+            specs, tables, pts, b, segs, g, kind == "multi", need_pts, dtype_p)
+        plain_ms, fused_ms = cuda_median_ms(plain), cuda_median_ms(fused)
+        split = device_split(fused)
+        kernel_split = device_split(kernel)
+        bwd_ms = sum(v for k, v in kernel_split.items() if "hashgrid_backward_kernel" in k)
+        fwd_ms = sum(v for k, v in split.items() if "hashgrid_encode_kernel" in k)
+        scatter_ms = sum(v for k, v in split.items()
+                         if any(n in k for n in ("segmented", "onehot", "sorted_scatter")))
+        plain_dev = device_ms(plain)
+        V = 1 if specs[0].scalar else specs[0].n_features
+        L = specs[0].n_levels
+        with torch.no_grad():
+            rows = gathered_bytes(lambda: t.plain_fn(kind, specs, tables, pts, bounds, segs))
+        nbytes = (12 * M + 4 * D * M + 4 * L * 8 * M + dtype_p.itemsize * V * L * 8 * M
+                  + (12 * M + rows if need_pts else 0))
+        bnd = bound(0, nbytes)
+        share = bnd[0] / bwd_ms if bwd_ms else None
+        out[enc] = {"points": M, "plain_ms": plain_ms, "plain_device_ms": plain_dev,
+                    "fused_ms": fused_ms, "fused_device_ms": sum(split.values()) or None,
+                    "forward_kernel_device_ms": fwd_ms or None,
+                    "backward_kernel_device_ms": bwd_ms or None,
+                    "scatter_device_ms": scatter_ms or None,
+                    "backward_kernels": sorted(kernel_name(k) for k in kernel_split),
+                    "bound_ms": bnd[0], "bound_by": bnd[1], "share": share}
+        phase("hashgrid-backward-time", card=repr(nvidia_smi()), encoder=enc, points=M,
+              points_grad=need_pts, plain_ms=fmt_ms(plain_ms), plain_device_ms=fmt_ms(plain_dev),
+              fused_ms=fmt_ms(fused_ms), fused_device_ms=fmt_ms(out[enc]["fused_device_ms"]),
+              forward_kernel_device_ms=fmt_ms(out[enc]["forward_kernel_device_ms"]),
+              backward_kernel_device_ms=fmt_ms(out[enc]["backward_kernel_device_ms"]),
+              scatter_device_ms=fmt_ms(out[enc]["scatter_device_ms"]),
+              backward_kernels=repr(out[enc]["backward_kernels"]),
+              bound_ms=f"{bnd[0]:.4f}", bound_by=bnd[1],
+              share=("not measured" if share is None else f"{share:.1%}"),
+              speedup=f"{plain_ms / fused_ms:.1f}x")
+        del tables, leaves, pts, x, g
+        torch.cuda.empty_cache()
+    return out
+
+
 def nccl_ranks_only(world: int) -> int:
     """``python3 chip_smoke.py --nccl-ranks N``: only phase 16(e), on N
     NCCL ranks, one a card (N cards), after the kernels' build and phase
@@ -4042,15 +4162,15 @@ def main(argv=None) -> int:
     if launches != r["chunks_rendered"] or launches == 0:
         raise AssertionError(f"knn_blend launched {launches} times for "
                              f"{r['chunks_rendered']} chunks")
-    enc = (hashgrid.fused_encode.launches, hashgrid.fused_encode.plain_cuda_calls)
+    enc = (hashgrid.fused_encode.launches, hashgrid.fused_encode_backward.launches)
     if enc != (2 * r["chunks_rendered"], 0):
-        raise AssertionError(f"the render's encoders: (fused launches, plain CUDA "
-                             f"encodes) {enc} for {r['chunks_rendered']} chunks")
+        raise AssertionError(f"the render's encoders: (forward, backward) launches "
+                             f"{enc} for {r['chunks_rendered']} chunks")
     warm_ms = 1000.0 * float(np.median(r["frame_s"][1:]))
     phase("slice", config="inb_377", side=int(round(1024 * cfg.eval_ratio)),
           rays_per_frame=r["rays"], chunk=r["chunk"], frames=len(r["frame_s"]),
           chunks_rendered=r["chunks_rendered"], knn_launches=launches,
-          encode_launches=enc[0], plain_encodes=enc[1],
+          encode_launches=enc[0], encode_backward_launches=enc[1],
           frame_ms=[f"{1000 * s:.1f}" for s in r["frame_s"]],
           warm_ms_per_frame=f"{warm_ms:.1f}",
           rays_per_s=f"{r['rays'] / (warm_ms / 1000.0):.0f}",
@@ -4155,6 +4275,10 @@ def main(argv=None) -> int:
     # 17. the fused hash-grid encoding against the plain chain, and its times
     hashgrid_res = hashgrid_slice(dev)
 
+    # 18. its backward at a fit step's shapes against the plain chain's
+    #     autograd and a float64 chain, and its times
+    backward_res = hashgrid_backward_slice(dev)
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -4247,6 +4371,7 @@ def main(argv=None) -> int:
                                          for m, g in programs_replay.items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"hashgrid_encode": hashgrid_res}))
+    print(json.dumps({"hashgrid_backward": backward_res}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

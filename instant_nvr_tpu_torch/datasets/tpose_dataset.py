@@ -391,8 +391,10 @@ class TPoseDataset:
     def _load_image(self, index: int, ratio: float):
         """(image, mask, unmodified mask, semantic masks, K, H, W) of item
         ``index`` at ``ratio``: decoded, undistorted and resized once, then
-        served from the byte-bounded cache (copies of what sampling
-        mutates; the semantic masks are read only)."""
+        served from the byte-bounded cache.  The arrays are the cached ones,
+        read-only: the samplers copy what they change (a copy of a 1024^2
+        image an item was a fifth of MonoCap's item build), and a write to
+        one raises."""
         cache_key = (index, ratio)
         with self._img_lock:
             cached = self._img_cache.get(cache_key)
@@ -400,7 +402,7 @@ class TPoseDataset:
                 self._img_cache.move_to_end(cache_key)
         if cached is not None:
             img, msk, orig_msk, sem_masks, K, H, W = cached
-            return img.copy(), msk.copy(), orig_msk.copy(), sem_masks, K.copy(), H, W
+            return img, msk, orig_msk, sem_masks, K.copy(), H, W
 
         cfg = self.cfg
         cam_ind = self.cam_inds[index]
@@ -427,7 +429,9 @@ class TPoseDataset:
             img[msk == 0] = 0
         K = K.copy()
         K[:2] *= ratio
-        entry = (img.copy(), msk, orig_msk, sem_masks, K, H, W)
+        for a in (img, msk, orig_msk, *sem_masks.values()):
+            a.flags.writeable = False
+        entry = (img, msk, orig_msk, sem_masks, K, H, W)
         nbytes = _entry_bytes(entry)
         with self._img_lock:
             if nbytes <= self.cache_bytes and cache_key not in self._img_cache:
@@ -436,7 +440,7 @@ class TPoseDataset:
                 while self._img_cache_bytes > self.cache_bytes:
                     _, old = self._img_cache.popitem(last=False)
                     self._img_cache_bytes -= _entry_bytes(old)
-        return img, msk.copy(), orig_msk.copy(), sem_masks, K.copy(), H, W
+        return img, msk, orig_msk, sem_masks, K.copy(), H, W
 
     def get_item(self, index: int, ratio: Optional[float] = None,
                  sample_focus: Optional[str] = None,

@@ -43,19 +43,24 @@ scatter-add of the gather's cotangent, routed by :func:`grad_route`:
 The index streams are (n_lev, 8, N) arrays, level-major when flattened,
 which the kernels require.
 
-Forward routes (:func:`encode_route`).  Points on a CUDA device whose
-encoding no gradient is asked of (``torch.no_grad``, ``inference_mode``,
-or no input that requires one: the render, the evaluator, the occupancy
-cube) take the fused kernel ``csrc/hashgrid_encode.cu``
-(:func:`fused_encode`): one launch an encoder call, all part grids of
-:func:`multi_hashgrid_encode` in one, the same numbers as the plain chain
-(module doc of the kernel); a call there that the kernel cannot take
-raises ValueError with the reason (:func:`fused_refusal`).  Everything
-else takes the plain chain (:func:`hashgrid_encode_plain`,
-:func:`multi_hashgrid_encode_plain`): every training path, and the CPU,
-where it is the reference the tests hold.  ``fused_encode.launches``
-counts the kernel's launches and ``fused_encode.plain_cuda_calls`` the CUDA
-encodes that took the plain chain because a gradient was asked.
+Routes (:func:`encode_route`).  Points on a CUDA device take the kernels
+of ``csrc/hashgrid_encode.cu``, one launch an encoder call, all part grids
+of :func:`multi_hashgrid_encode` in one: where no gradient is asked of the
+encoding (``torch.no_grad``, ``inference_mode``, or no input that requires
+one: the render, the evaluator, the occupancy cube) the forward alone
+(:func:`fused_encode`); where one is (every training path) the autograd
+Function :func:`fused_autograd_encode`, that forward and one backward
+launch (:func:`fused_encode_backward`) that writes the table-gradient
+records the scatter kernels above sum, bit-equal to those the plain
+chain's autograd hands them, and the points' gradient.  The forward gives
+the plain chain's numbers (module doc of the kernel).  A CUDA call the
+kernels cannot take raises ValueError with the reason
+(:func:`fused_refusal`).  The CPU takes the plain chain
+(:func:`hashgrid_encode_plain`, :func:`multi_hashgrid_encode_plain`), the
+reference the tests hold; :func:`encode_backward_plain` is the backward
+kernel's contract in plain PyTorch, which the Function runs on CPU
+tensors.  ``fused_encode.launches`` and ``fused_encode_backward.launches``
+count the kernels' launches.
 """
 from __future__ import annotations
 
@@ -508,13 +513,16 @@ def multi_hashgrid_encode_plain(specs: Sequence[HashGridSpec], params_list,
 def hashgrid_encode(spec: HashGridSpec, params: dict, xyz: torch.Tensor,
                     bounds: torch.Tensor) -> torch.Tensor:
     """Encode points.  xyz (N, 3); bounds (2, 3) -> (N, out_dim).  The
-    fused kernel on the no-grad CUDA route (:func:`encode_route`), else
+    fused kernels on CUDA (:func:`encode_route`), else
     :func:`hashgrid_encode_plain`."""
     n = (xyz.shape[0],)
     refusal = functools.partial(fused_refusal, (spec,), (params,), xyz, bounds, n)
-    if _route(xyz.device.type, [xyz, bounds, *params.values()], refusal) == "fused":
+    route = _route(xyz.device.type, [xyz, bounds, *params.values()], refusal)
+    if route == "fused":
         return fused_encode((spec,), (params,), xyz, bounds.reshape(1, 2, 3), n,
                             multi=False)
+    if route == "grad":
+        return fused_autograd_encode((spec,), (params,), xyz, bounds, n, multi=False)
     return hashgrid_encode_plain(spec, params, xyz, bounds)
 
 
@@ -527,14 +535,17 @@ def multi_hashgrid_encode(specs: Sequence[HashGridSpec], params_list,
     with ``bounds[p]``, concatenated.  pts (M, 3), M == sum(seg_sizes);
     bounds (P, 2, 3).  Every spec shares n_levels / n_features / primes and
     the part-grid mode (sum over features).  Returns (M, out_dim): from one
-    launch of the fused kernel on the no-grad CUDA route
-    (:func:`encode_route`), else from :func:`multi_hashgrid_encode_plain`.
+    launch of the fused kernel on CUDA (:func:`encode_route`; its backward
+    one more), else from :func:`multi_hashgrid_encode_plain`.
     """
     _check_parts(specs, pts, seg_sizes)
     tensors = [pts, bounds] + [t for tabs in params_list for t in tabs.values()]
     refusal = functools.partial(fused_refusal, specs, params_list, pts, bounds, seg_sizes)
-    if _route(pts.device.type, tensors, refusal) == "fused":
+    route = _route(pts.device.type, tensors, refusal)
+    if route == "fused":
         return fused_encode(specs, params_list, pts, bounds, seg_sizes, multi=True)
+    if route == "grad":
+        return fused_autograd_encode(specs, params_list, pts, bounds, seg_sizes, multi=True)
     return multi_hashgrid_encode_plain(specs, params_list, pts, bounds, seg_sizes)
 
 
@@ -552,17 +563,18 @@ _SCALAR, _LEVEL_SUM, _FEATURE_SUM, _CONCAT = range(4)
 
 
 def encode_route(device_type: str, needs_grad: bool, refusal: Optional[str] = None) -> str:
-    """Where an encoder call goes: 'fused' (:func:`fused_encode`) for points
-    on a CUDA device when no gradient is asked of the encoding, else 'plain'
-    (the chain of PyTorch ops, whose table gathers carry the scatter-kernel
-    backward).  Raises ValueError on the fused route when the kernel cannot
-    take the call: ``refusal`` (:func:`fused_refusal`) says why."""
-    if device_type != "cuda" or needs_grad:
+    """Where an encoder call goes: for points on a CUDA device 'fused'
+    (:func:`fused_encode`) when no gradient is asked of the encoding, else
+    'grad' (:func:`fused_autograd_encode`); off CUDA 'plain' (the chain of
+    PyTorch ops, whose table gathers carry the scatter-kernel backward).
+    Raises ValueError on CUDA when the kernels cannot take the call:
+    ``refusal`` (:func:`fused_refusal`) says why."""
+    if device_type != "cuda":
         return "plain"
     if refusal is not None:
-        raise ValueError(f"the fused hash-grid encoding cannot take this no-grad "
-                         f"CUDA call: {refusal}")
-    return "fused"
+        raise ValueError(f"the fused hash-grid encoding cannot take this CUDA call: "
+                         f"{refusal}")
+    return "grad" if needs_grad else "fused"
 
 
 def _fused_mode(spec: HashGridSpec) -> int:
@@ -577,11 +589,11 @@ def _fused_mode(spec: HashGridSpec) -> int:
 
 def fused_refusal(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
                   bounds: torch.Tensor, seg_sizes: Sequence[int]) -> Optional[str]:
-    """Why the kernel cannot take this call, or None where it can: it takes
-    uniform specs within its limits, float32 points (M, 3) and bounds
-    (P, 2, 3) (or (2, 3) for one part), and tables of one dtype (float32 or
-    bfloat16), contiguous, 16-byte aligned, of the specs' shapes, on the
-    points' device."""
+    """Why the kernels cannot take this call, or None where they can: they
+    take uniform specs within their limits, float32 points (M, 3) and
+    bounds (P, 2, 3) (or (2, 3) for one part) that ask for no gradient, and
+    tables of one dtype (float32 or bfloat16), contiguous, 16-byte aligned,
+    of the specs' shapes, on the points' device."""
     s0 = specs[0]
     L, F = s0.n_levels, s0.n_features
     staged = L * F if _fused_mode(s0) in (_FEATURE_SUM, _CONCAT) else L
@@ -605,6 +617,8 @@ def fused_refusal(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
             or bounds.numel() != 6 * len(specs)):
         return (f"bounds {bounds.dtype} {tuple(bounds.shape)} on {bounds.device}, not "
                 f"float32 ({len(specs)}, 2, 3) on {pts.device}")
+    if torch.is_grad_enabled() and bounds.requires_grad:
+        return "bounds that require a gradient: the backward kernel gives the points' alone"
     dtype = params_list[0]["dense"].dtype
     if dtype not in (torch.float32, torch.bfloat16):
         return f"{dtype} tables, not float32 or bfloat16"
@@ -624,15 +638,10 @@ def fused_refusal(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
 
 def _route(device_type: str, tensors, refusal) -> str:
     """:func:`encode_route` of a call on ``tensors`` (points, bounds,
-    tables); ``refusal()`` is asked only on the fused route.  Counts a CUDA
-    call that takes the plain chain because a gradient was asked in
-    ``fused_encode.plain_cuda_calls``."""
+    tables); ``refusal()`` is asked only of CUDA calls."""
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    fused = device_type == "cuda" and not needs_grad
-    route = encode_route(device_type, needs_grad, refusal() if fused else None)
-    if route == "plain" and device_type == "cuda":
-        fused_encode.plain_cuda_calls += 1
-    return route
+    return encode_route(device_type, needs_grad,
+                        refusal() if device_type == "cuda" else None)
 
 
 @functools.lru_cache(maxsize=64)
@@ -676,12 +685,7 @@ def fused_encode(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
     if M == 0:
         return out
     pts, bounds = pts.contiguous(), bounds.contiguous()
-    seg = np.cumsum([0] + [int(n) for n in seg_sizes], dtype=np.int64).astype(np.int32)
-    ptrs = np.asarray([[t["dense"].data_ptr(), t["hash"].data_ptr(),
-                        bounds.data_ptr() + 24 * p] for p, t in enumerate(params_list)],
-                      dtype=np.uint64)
-    ints = _part_ints(tuple(specs))
-    primes = np.asarray([p & 0xFFFFFFFF for p in s0.primes], dtype=np.uint32)
+    seg, ptrs, ints, primes = _launch_arrays(specs, params_list, bounds, seg_sizes)
     launch = load_fused_kernel()
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream(pts.device).cuda_stream
@@ -698,4 +702,321 @@ def fused_encode(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
 
 
 fused_encode.launches = 0
-fused_encode.plain_cuda_calls = 0
+
+
+def _launch_arrays(specs: Sequence[HashGridSpec], params_list, bounds: torch.Tensor,
+                   seg_sizes: Sequence[int]):
+    """The host arrays both launch functions read: the part-major segment
+    starts, each part's (dense, hash, bounds row) pointers, its level
+    constants (:func:`_part_ints`) and the primes."""
+    seg = np.cumsum([0] + [int(n) for n in seg_sizes], dtype=np.int64).astype(np.int32)
+    ptrs = np.asarray([[t["dense"].data_ptr(), t["hash"].data_ptr(),
+                        bounds.data_ptr() + 24 * p] for p, t in enumerate(params_list)],
+                      dtype=np.uint64)
+    primes = np.asarray([p & 0xFFFFFFFF for p in specs[0].primes], dtype=np.uint32)
+    return seg, ptrs, _part_ints(tuple(specs)), primes
+
+
+# --------------------------------------------------------------------------
+# the fused backward (csrc/hashgrid_encode.cu: hashgrid_backward_kernel)
+# --------------------------------------------------------------------------
+
+class RecordTable(NamedTuple):
+    """Where one table's gradient records lie in a backward's flat buffers:
+    part ``part``'s ``name`` table, its levels ``levels`` of the encoding,
+    records [first, first + rows) (``(n_lev, 8, kp)`` level-major), the
+    payload ``V`` values a record from ``first * V``, feature-major (one
+    column a scatter call, the 'columns' plan) or record-major."""
+    part: int
+    name: str
+    levels: Tuple[int, int]
+    kp: int
+    first: int
+    rows: int
+    n_rows: int
+    level_offsets: Tuple[int, ...]
+    plan: str
+
+
+def record_tables(specs: Sequence[HashGridSpec], seg_sizes: Sequence[int]) -> List[RecordTable]:
+    """Each table's place in the records of one backward, in the order the
+    kernel writes them: part by part, the dense levels then the hashed."""
+    L = specs[0].n_levels
+    out, start = [], 0
+    for p, (s, kp) in enumerate(zip(specs, (int(n) for n in seg_sizes))):
+        lo = 0
+        for name, n_rows, level_offsets in s.tables():
+            hi = s.start_hash if name == "dense" else L
+            out.append(RecordTable(p, name, (lo, hi), kp, start + lo * 8 * kp,
+                                   (hi - lo) * 8 * kp, n_rows, level_offsets,
+                                   gather_plan(s, n_rows)))
+            lo = hi
+        start += L * 8 * kp
+    return out
+
+
+def payload_dtype(spec: HashGridSpec, table_dtype: torch.dtype) -> torch.dtype:
+    """The records' payload dtype: float32 where the tables' gradient is
+    exact (:func:`grad_route`: float32 tables read whole, or under
+    ``exact_grads``), else bfloat16, the scatter kernels'."""
+    exact = table_dtype != torch.bfloat16 and (spec.scalar or spec.exact_grads)
+    return torch.float32 if exact else torch.bfloat16
+
+
+def _backward_buffers(specs, seg_sizes, device, dtype, need_pts):
+    L, M = specs[0].n_levels, int(sum(seg_sizes))
+    V = 1 if specs[0].scalar else specs[0].n_features
+    idx = torch.empty(L * 8 * M, dtype=torch.int32, device=device)
+    payload = torch.empty(L * 8 * M * V, dtype=dtype, device=device)
+    pts_grad = torch.empty((M, 3), dtype=torch.float32, device=device) if need_pts else None
+    return idx, payload, pts_grad
+
+
+def load_backward_kernel():
+    """Build (if needed) and load ``csrc/hashgrid_encode.cu`` -> its
+    backward launch function.  Raises if the build fails."""
+    from ..cuda_build import load_library
+    fn = load_library("hashgrid_encode").hashgrid_backward_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_encode_backward(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
+                          bounds: torch.Tensor, seg_sizes: Sequence[int], g: torch.Tensor,
+                          multi: bool, need_pts: bool, dtype: torch.dtype):
+    """One launch of the backward kernel on the current stream: for the
+    forward :func:`fused_encode` ran (the same arguments) and ``g``, the
+    (M, out_dim) cotangent of its output -> (idx, payload, pts_grad): the
+    table-gradient records, laid out as :func:`record_tables` says, with
+    ``dtype`` payloads, and with ``need_pts`` the (M, 3) float32 gradient
+    of the points (else None).  :func:`encode_backward_plain` states the
+    numbers.  No host sync and no allocation but the outputs, so it runs
+    inside a CUDA graph capture."""
+    s0 = specs[0]
+    M = int(sum(seg_sizes))
+    idx, payload, pts_grad = _backward_buffers(specs, seg_sizes, pts.device, dtype, need_pts)
+    if M == 0:
+        return idx, payload, pts_grad
+    pts, bounds, g = pts.contiguous(), bounds.contiguous(), g.contiguous()
+    seg, ptrs, ints, primes = _launch_arrays(specs, params_list, bounds, seg_sizes)
+    fmajor = np.zeros((len(specs), 2), dtype=np.int32)
+    for t in record_tables(specs, seg_sizes):
+        fmajor[t.part, int(t.name == "hash")] = t.plan == "columns"
+    launch = load_backward_kernel()
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        err = launch(pts.data_ptr(), g.data_ptr(), idx.data_ptr(), payload.data_ptr(),
+                     pts_grad.data_ptr() if need_pts else 0, M, len(specs),
+                     seg.ctypes.data, ptrs.ctypes.data, ints.ctypes.data, fmajor.ctypes.data,
+                     s0.n_levels, s0.n_features, 1 if s0.scalar else s0.n_features,
+                     int(params_list[0]["dense"].dtype == torch.bfloat16),
+                     _fused_mode(s0), int(multi), int(s0.include_input), s0.out_dim,
+                     primes.ctypes.data, int(dtype == torch.bfloat16), int(need_pts), stream)
+    if err != 0:
+        raise RuntimeError(f"hashgrid_backward kernel launch failed: cudaError {err}")
+    fused_encode_backward.launches += 1
+    return idx, payload, pts_grad
+
+
+fused_encode_backward.launches = 0
+
+
+def _level_cotangent(spec: HashGridSpec, g: torch.Tensor) -> torch.Tensor:
+    """(kp, out_dim) cotangent -> (L, V, kp): each level's V values'."""
+    L, F = spec.n_levels, spec.n_features
+    V = 1 if spec.scalar else F
+    gl = g[:, 3:] if spec.include_input else g
+    mode = _fused_mode(spec)
+    if mode == _CONCAT:
+        return gl.reshape(-1, L, V).permute(1, 2, 0)
+    if mode == _FEATURE_SUM:
+        return gl[:, :V].T[None].expand(L, V, -1)
+    return gl[:, :L].T[:, None].expand(L, V, -1)
+
+
+def encode_backward_plain(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
+                          bounds: torch.Tensor, seg_sizes: Sequence[int], g: torch.Tensor,
+                          multi: bool, need_pts: bool, dtype: torch.dtype):
+    """:func:`fused_encode_backward`'s contract in plain PyTorch, float op
+    for float op (the twin the tests hold against autograd through the
+    plain chain).
+
+    Records: each (level, corner, point)'s row, as the plain chain indexes
+    the table, and payload ``ge * w`` in ``dtype`` for the level's
+    cotangent ``ge`` and the corner's weight ``w``, but for scalar grids
+    ``(ge * F) * w`` (``multi`` False: :func:`hashgrid_encode_plain`'s
+    product order) or ``(ge * w) * F`` (``multi``: the order of
+    :func:`multi_hashgrid_encode_plain`).
+
+    Points (``need_pts``): for each level, ``u_c`` = the sum over the
+    corner's row values of cotangent x value (scalar grids: ``(ge * v) *
+    F``), then for each dimension d the sum over the corners in order of
+    ``u_c * (+-)`` the product of the other two dimensions' weights (the
+    sign of the corner's bit), times ``res - 1``; the levels summed in
+    order from 0, then the normalised point's own cotangent (with
+    ``include_input``), over the box's extent."""
+    s0 = specs[0]
+    L, V = s0.n_levels, 1 if s0.scalar else s0.n_features
+    nf = float(s0.n_features)
+    dev = pts.device
+    idx, payload, pts_grad = _backward_buffers(specs, seg_sizes, dev, dtype, need_pts)
+    b = bounds.reshape(-1, 2, 3)
+    offs = np.cumsum([0] + [int(n) for n in seg_sizes])
+    tabs = record_tables(specs, seg_sizes)
+    cbits = torch.from_numpy(_corner_bits()).to(dev)                 # (8, 3)
+    for p, s in enumerate(specs):
+        o, e = int(offs[p]), int(offs[p + 1])
+        if e == o:
+            continue
+        x01 = (pts[o:e] - b[p, 0]) / (b[p, 1] - b[p, 0])
+        res = torch.tensor(s.entries_num, dtype=torch.int32, device=dev)[:, None]
+        idx3, w = _corners(x01, res)                                  # (L, 8, kp)
+        S = s.start_hash
+        ind = torch.empty_like(idx3[0])
+        if S:
+            n = res[:S].long()[:, :, None]
+            ind[:S] = (idx3[0][:S] * (n * n) + idx3[1][:S] * n + idx3[2][:S]
+                       + _dense_offsets(s, dev))
+        if S < L:
+            ind[S:] = (_hash_index([i[S:] for i in idx3], s.primes, s.table_size)
+                       + _hash_offsets(s, dev))
+        ge = _level_cotangent(s, g[o:e])                             # (L, V, kp)
+        if s.scalar:
+            g0 = ge[:, 0][:, None, :]
+            vals = ((g0 * w) * nf if multi else (g0 * nf) * w)[..., None]
+        else:
+            vals = ge.permute(0, 2, 1)[:, None] * w[..., None]      # (L, 8, kp, V)
+        vals = vals.to(dtype)
+        for t in (t for t in tabs if t.part == p):
+            lo, hi = t.levels
+            idx[t.first:t.first + t.rows] = ind[lo:hi].reshape(-1).to(torch.int32)
+            v = vals[lo:hi].reshape(t.rows, V)
+            payload[t.first * V:(t.first + t.rows) * V] = (
+                v.T.reshape(-1) if t.plan == "columns" else v.reshape(-1))
+        if not need_pts:
+            continue
+        # the corners' row values, float32 (L, 8, kp, V)
+        val = torch.empty(ind.shape + (V,), dtype=torch.float32, device=dev)
+        for t in (t for t in tabs if t.part == p):
+            lo, hi = t.levels
+            val[lo:hi] = params_list[p][t.name][ind[lo:hi]].reshape(
+                (hi - lo, 8, e - o, V)).float()
+        if s.scalar:
+            u = (ge[:, 0][:, None, :] * val[..., 0]) * nf
+        else:
+            u = torch.zeros_like(w)
+            for f in range(V):
+                u = u + ge[:, f][:, None, :] * val[..., f]
+        # each dimension's weights of the corners, as the forward takes them
+        scale = res.to(torch.float32) - 1.0                          # (L, 1)
+        wd = []
+        for d in range(3):
+            fd = x01[:, d][None, :] * scale                           # (L, kp)
+            lo_d = torch.minimum(torch.clamp(fd.to(torch.int32).long(), min=0),
+                                 res.long() - 1).to(torch.float32)
+            off = fd - lo_d
+            bit = cbits[:, d].bool()[None, :, None]
+            wd.append(torch.where(bit, off[:, None, :], (1.0 - off)[:, None, :]))
+        dw = (wd[1] * wd[2], wd[0] * wd[2], wd[0] * wd[1])
+        x_grad = []
+        for d in range(3):
+            signed = torch.where(cbits[:, d].bool()[None, :, None], dw[d], -dw[d])
+            acc = torch.zeros_like(u[:, 0])
+            for c in range(8):
+                acc = acc + u[:, c] * signed[:, c]
+            dxl = acc * scale                                         # (L, kp)
+            tot = torch.zeros_like(dxl[0])
+            for lev in range(L):
+                tot = tot + dxl[lev]
+            if s.include_input:
+                tot = tot + g[o:e, d]
+            x_grad.append(tot / (b[p, 1, d] - b[p, 0, d]))
+        pts_grad[o:e] = torch.stack(x_grad, dim=-1)
+    return idx, payload, pts_grad
+
+
+def _table_grads(specs: Sequence[HashGridSpec], tables: Sequence[torch.Tensor],
+                 seg_sizes: Sequence[int], idx: torch.Tensor, payload: torch.Tensor,
+                 needs: Sequence[bool]) -> List[Optional[torch.Tensor]]:
+    """The gradient of each of ``tables`` (part by part, dense then hash),
+    or None where ``needs`` says none is asked: the records handed to
+    :func:`_table_grad` as the plain chain's gathers hand theirs, one call a
+    table, or a column of a table the encoders read by column."""
+    V = 1 if specs[0].scalar else specs[0].n_features
+    grads: List[Optional[torch.Tensor]] = [None] * len(tables)
+    slot = {(p, name): 2 * p + i for p in range(len(specs))
+            for i, name in enumerate(("dense", "hash"))}
+    for t in record_tables(specs, seg_sizes):
+        k = slot[(t.part, t.name)]
+        if not needs[k]:
+            continue
+        s, table = specs[t.part], tables[k]
+        ind = idx[t.first:t.first + t.rows].view(t.levels[1] - t.levels[0], 8, t.kp)
+        pay = payload[t.first * V:(t.first + t.rows) * V]
+        args = (t.n_rows, t.level_offsets, table.dtype)
+        if t.plan == "columns":
+            cols = pay.view(V, t.rows)
+            grads[k] = torch.cat([_table_grad(ind, cols[f].view(t.rows, 1), *args,
+                                              not s.exact_grads, s.sorted_grads)
+                                  for f in range(V)], dim=1)
+        else:
+            grads[k] = _table_grad(ind, pay.view(t.rows, V), *args,
+                                   t.plan == "rows" and not s.exact_grads, s.sorted_grads)
+        grads[k] = grads[k].reshape(table.shape)
+    return grads
+
+
+class _FusedEncode(torch.autograd.Function):
+    """The encoding with the kernels' forward and backward: on CUDA
+    :func:`fused_encode` and :func:`fused_encode_backward`, on the CPU the
+    plain chain and :func:`encode_backward_plain`.  Saves the points, the
+    bounds and the tables it read; the records go to the scatter kernels
+    through :func:`_table_grad`."""
+
+    @staticmethod
+    def forward(ctx, specs, seg_sizes, multi, pts, bounds, *tables):
+        params_list = [{"dense": tables[2 * p], "hash": tables[2 * p + 1]}
+                       for p in range(len(specs))]
+        if pts.device.type == "cuda":
+            out = fused_encode(specs, params_list, pts, bounds.reshape(-1, 2, 3), seg_sizes,
+                               multi=multi)
+        elif multi:
+            out = multi_hashgrid_encode_plain(specs, params_list, pts, bounds, seg_sizes)
+        else:
+            out = hashgrid_encode_plain(specs[0], params_list[0], pts, bounds)
+        ctx.save_for_backward(pts, bounds, *tables)
+        ctx.meta = (specs, seg_sizes, multi)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        pts, bounds, *tables = ctx.saved_tensors
+        specs, seg_sizes, multi = ctx.meta
+        need_pts = ctx.needs_input_grad[3]
+        needs = ctx.needs_input_grad[5:]
+        params_list = [{"dense": tables[2 * p], "hash": tables[2 * p + 1]}
+                       for p in range(len(specs))]
+        dtype = payload_dtype(specs[0], tables[0].dtype)
+        fn = fused_encode_backward if pts.device.type == "cuda" else encode_backward_plain
+        idx, payload, pts_grad = fn(specs, params_list, pts, bounds.reshape(-1, 2, 3),
+                                    seg_sizes, g, multi, need_pts, dtype)
+        grads = _table_grads(specs, tables, seg_sizes, idx, payload, needs)
+        return (None, None, None, pts_grad, None, *grads)
+
+
+def fused_autograd_encode(specs: Sequence[HashGridSpec], params_list, pts: torch.Tensor,
+                          bounds: torch.Tensor, seg_sizes: Sequence[int],
+                          multi: bool = True) -> torch.Tensor:
+    """:func:`multi_hashgrid_encode` (``multi``) or :func:`hashgrid_encode`
+    (one spec, ``bounds`` (2, 3)) through the autograd Function of the
+    kernels: the same forward as :func:`fused_encode`, and a backward of
+    one kernel launch plus the table-gradient scatters.  The caller has
+    checked :func:`fused_refusal` on CUDA."""
+    tables = [t[name] for t in params_list for name in ("dense", "hash")]
+    return _FusedEncode.apply(tuple(specs), tuple(int(n) for n in seg_sizes), bool(multi),
+                              pts, bounds, *tables)

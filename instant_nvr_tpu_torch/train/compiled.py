@@ -80,16 +80,14 @@ WARMUP_STEPS = 3
 SCHEDULE_STEPS = 4096
 
 # the counters of every kernel wrapper a captured program may launch
-# (``exact_scatter_add.calls`` counts the exact route's ``index_add_``,
-# ``fused_encode.plain_cuda_calls`` the CUDA encodes that took the plain
-# chain because a gradient was asked)
+# (``exact_scatter_add.calls`` counts the exact route's ``index_add_``)
 _COUNTERS = ((knn.knn_blend, "launches"), (knn.knn_topk, "launches"),
              (scatter.segmented_scatter_add, "launches"),
              (scatter.onehot_scatter_add, "launches"),
              (scatter.sorted_scatter_add, "launches"),
              (scatter.exact_scatter_add, "calls"),
              (hashgrid.fused_encode, "launches"),
-             (hashgrid.fused_encode, "plain_cuda_calls"))
+             (hashgrid.fused_encode_backward, "launches"))
 
 Launches = Tuple[int, ...]
 

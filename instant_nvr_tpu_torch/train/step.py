@@ -396,6 +396,15 @@ def reduce_stats(stats: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def encoder_calls(rspec: RenderSpec) -> int:
+    """Hash-grid encoder calls of one train step, each asking for a
+    gradient (on the card one launch of each of ``ops/hashgrid.py``'s
+    forward and backward kernels): the deformer and the part grids over the
+    samples, and the deformer again for the pair regularizer's
+    neighbours."""
+    return 3 if rspec.use_pair_reg else 2
+
+
 def table_grad_launches(mspec: inb.ModelSpec, rspec: RenderSpec) -> Counter:
     """Table-gradient scatters of one train step by route ('segmented',
     'onehot', 'exact'): the part grids once, the deformer's table once for

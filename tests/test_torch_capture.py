@@ -551,7 +551,7 @@ def test_capture_and_replay_count_each_graphs_launches(monkeypatch):
                 (scatter.onehot_scatter_add, "launches"),
                 (scatter.sorted_scatter_add, "launches"),
                 (scatter.exact_scatter_add, "calls"),
-                (hg.fused_encode, "launches"), (hg.fused_encode, "plain_cuda_calls")]
+                (hg.fused_encode, "launches"), (hg.fused_encode_backward, "launches")]
     for fn, attr in counters:
         monkeypatch.setattr(fn, attr, 5)
 
@@ -559,7 +559,8 @@ def test_capture_and_replay_count_each_graphs_launches(monkeypatch):
         knn.knn_blend.launches += 1
         scatter.segmented_scatter_add.launches += 8
         scatter.onehot_scatter_add.launches += 10
-        hg.fused_encode.launches += 2
+        hg.fused_encode.launches += 3
+        hg.fused_encode_backward.launches += 3
         return {"loss": torch.zeros(())}
     graph, out, launches = compiled.capture(fake_step, stream=None)
     assert set(out) == {"loss"}
@@ -568,12 +569,12 @@ def test_capture_and_replay_count_each_graphs_launches(monkeypatch):
         "knn_blend.launches": 1, "knn_topk.launches": 0,
         "segmented_scatter_add.launches": 8, "onehot_scatter_add.launches": 10,
         "sorted_scatter_add.launches": 0, "exact_scatter_add.calls": 0,
-        "fused_encode.launches": 2, "fused_encode.plain_cuda_calls": 0}
+        "fused_encode.launches": 3, "fused_encode_backward.launches": 3}
     _StubGraph.replays = 0
     for _ in range(3):
         compiled.replay(graph, launches)
     assert _StubGraph.replays == 3
-    assert [getattr(f, a) for f, a in counters] == [8, 29, 35, 5, 5, 11, 5]
+    assert [getattr(f, a) for f, a in counters] == [8, 29, 35, 5, 5, 14, 14]
 
 
 def test_workspaces_refuse_a_first_use_under_capture(monkeypatch):

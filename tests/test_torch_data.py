@@ -402,6 +402,43 @@ def test_stage_for_epoch_matches_jax(path):
             _plain(jax_stage_for_epoch(cj, epoch)), epoch
 
 
+@pytest.mark.parametrize("mask", ["sparse", "dense", "one_pixel", "last_pixel", "uint8_focus"])
+def test_pick_nonzero_matches_argwhere(mask):
+    """The patch sampler's pixel pick: ``np.argwhere(ref)[rng.integers(0,
+    n)]`` for every draw, and the generator left where argwhere's pick
+    leaves it."""
+    g = np.random.default_rng(11)
+    ref = {"sparse": g.random((61, 47)) < 0.02, "dense": g.random((64, 64)) < 0.7,
+           "one_pixel": np.zeros((33, 20), bool), "last_pixel": np.zeros((9, 9), bool),
+           "uint8_focus": (g.random((40, 50)) < 0.3).astype(np.uint8)}[mask]
+    if mask == "one_pixel":
+        ref[17, 3] = True
+    if mask == "last_pixel":
+        ref[-1, -1] = True
+    a, b = np.random.default_rng(5), np.random.default_rng(5)
+    coords = np.argwhere(ref)
+    for _ in range(50):
+        assert sampling.pick_nonzero(ref, a) == tuple(coords[b.integers(0, len(coords))])
+    assert a.integers(0, 2 ** 31) == b.integers(0, 2 ** 31)
+
+
+def test_cached_images_are_read_only(subjects):
+    """The image cache serves its arrays read-only: a write raises, and
+    the items built from them stay the JAX package's."""
+    cj, cp = _cfgs(subjects["port"])
+    jds, pds = JaxDataset(cj, "train"), TPoseDataset(cp, "train")
+    img, msk, orig_msk, sem, _, _, _ = pds._load_image(0, cp.ratio)
+    for a in (img, msk, orig_msk, *sem.values()):
+        with pytest.raises(ValueError, match="read-only"):
+            a[0] = 0
+    again = pds._load_image(0, cp.ratio)
+    assert again[0] is img and again[1] is msk
+    rng_j, rng_p = np.random.default_rng(3), np.random.default_rng(3)
+    for index in (0, 1, 0):
+        _assert_items_equal(pds.get_item(index, rng=rng_p), jds.get_item(index, rng=rng_j),
+                            f"item {index}")
+
+
 def test_samplers_match_jax():
     a, b = samplers.FrameSampler(24, 3, 2), jsamplers.FrameSampler(24, 3, 2)
     assert list(a) == list(b) and len(a) == len(b)
