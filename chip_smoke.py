@@ -239,6 +239,10 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      chunk and no backward; in a train step one forward and one backward
      launch an encoder call (``train.step.encoder_calls``), and phases 15
      and 16 hold each replay to them (the forward twice under ``remat``).
+     Likewise ``mlp_wgrad``: no launch in a render, one a linear layer
+     that asks a gradient in a train step (``train.step.mlp_wgrad_calls``,
+     13 at inb_377), eager and a replay, under Adam, RAdam, SGD, ``remat``
+     and ``fix_random``.
  18. the encoding's backward (``hashgrid_backward_kernel``, through the
      autograd Function ``ops/hashgrid.py:fused_autograd_encode``) at a fit
      step's shapes (``tests/test_torch_hashgrid_fused.py``'s
@@ -253,6 +257,18 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      device ms), the backward kernel's device ms alone, its bound (the
      points, the cotangent, the records, the points' gradient and the
      distinct rows gathered, each once, over 3.35 TB/s) and share.
+ 19. the MLPs' weight and bias gradients (``csrc/mlp_wgrad.cu``, through
+     ``ops/mlp_wgrad.py:weight_grads``) at each linear layer shape of a
+     fit step and at the kernel's edges (``tests/test_torch_mlp_wgrad.py``'s
+     ``fit_layers`` and ``EDGE_LAYERS``): within ``LIMIT`` of the element's
+     sum of |x g| of a float64 x^T g, as cuBLAS's float32 call is, where a
+     control with g rounded to bfloat16 is not; two launches bit-equal;
+     then each of a fit step's layers at its shape: the kernel's event and
+     device ms, cuBLAS's x^T g call's and the bias's sum's device ms (the
+     calls the port no longer makes), the bound (2 (Din + 1) Dout
+     operations a row over 67 TFLOP/s, or the operands read and the
+     gradients written once over 3.35 TB/s) and the share, and the step's
+     sums.
 Then one JSON line of kernel numbers (launches: the render, train,
 self-check, patch, evaluate, data-parallel, real-subject, orbax,
 completion, bench, captured and programs phases together, each row also with ``orbax_launches``; a KNN row's times are the render
@@ -274,7 +290,7 @@ has its uniform-keys case with the train step's records beside it, its
 times under the deterministic flag and the summed times of a
 ``fix_random`` patch step's 18 sorted calls), one JSON line of phase 17's
 numbers (``hashgrid_encode``), one of phase 18's (``hashgrid_backward``),
-the ``nvidia-smi`` name/power line, and last
+one of phase 19's (``mlp_wgrad``), the ``nvidia-smi`` name/power line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 import copy
@@ -866,6 +882,8 @@ def reset_counts(knn, scatter):
     from instant_nvr_tpu_torch.ops import hashgrid
     hashgrid.fused_encode.launches = 0
     hashgrid.fused_encode_backward.launches = 0
+    from instant_nvr_tpu_torch.ops import mlp_wgrad
+    mlp_wgrad.mlp_wgrad.launches = 0
 
 
 def launch_counts(knn, scatter):
@@ -916,10 +934,13 @@ def train_slice(cfg, dev, knn, scatter):
     import numpy as np
     import torch
     from instant_nvr_tpu_torch import bench, train_net
-    from instant_nvr_tpu_torch.train.step import encoder_calls, table_grad_launches
+    from instant_nvr_tpu_torch.ops import mlp_wgrad
+    from instant_nvr_tpu_torch.train.step import (encoder_calls, mlp_wgrad_calls,
+                                                  table_grad_launches)
     trainer = train_net.build_trainer(cfg, dev, seed=0)
     routes = table_grad_launches(trainer.mspec, trainer.rspec)
     calls = encoder_calls(trainer.rspec)
+    layers = mlp_wgrad_calls(trainer.mspec, trainer.rspec)
     gen = torch.Generator(device=dev)
     n_rays = int(trainer.batch["ray_o"].shape[0])
     torch.cuda.synchronize()
@@ -956,6 +977,10 @@ def train_slice(cfg, dev, knn, scatter):
     if enc != (steps * calls, steps * calls):
         raise AssertionError(f"train steps' encoders: (forward, backward) launches {enc} "
                              f"!= {calls} of each a step over {steps} steps")
+    wgrad = mlp_wgrad.mlp_wgrad.launches
+    if wgrad != steps * layers:
+        raise AssertionError(f"train steps' MLP weight gradients: {wgrad} launches != "
+                             f"{layers} a step over {steps} steps")
     med = rates[len(rates) // 2]
     phase("train", config="inb_377", rays=n_rays, samples=trainer.rspec.n_samples,
           steps=steps, windows=f"{bench.WINDOWS}x{bench.STEPS_PER_WINDOW}",
@@ -965,7 +990,8 @@ def train_slice(cfg, dev, knn, scatter):
           loss_last=f"{loss[-1]:.5f}", routes_per_step=repr(dict(routes)),
           launches=repr(counts), route=repr(str(trainer.route)),
           encode_launches=enc[0], encode_backward_launches=enc[1],
-          encoder_calls_per_step=f"{enc[1] / steps:g}")
+          encoder_calls_per_step=f"{enc[1] / steps:g}", mlp_wgrad_launches=wgrad,
+          mlp_wgrad_launches_per_step=f"{wgrad / steps:g}")
     busy, top_kernels, top_ops = profile_steps(trainer, gen)
     phase("train-profile", steps=PROFILE_STEPS,
           device_busy=("not measured" if busy is None else f"{busy:.3f}"),
@@ -3052,6 +3078,7 @@ def route_run(route, cfg, batch, patch_fn, dev, knn, scatter, steps=CAPTURE_STEP
     import torch
     from instant_nvr_tpu_torch import bench
     from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.ops import mlp_wgrad
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.train.compiled import CapturedStep
     from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
@@ -3069,6 +3096,7 @@ def route_run(route, cfg, batch, patch_fn, dev, knn, scatter, steps=CAPTURE_STEP
     torch.cuda.synchronize()
     got = launch_counts(knn, scatter)
     got["sorted_scatter_add"] = scatter.sorted_scatter_add.launches
+    got["mlp_wgrad"] = mlp_wgrad.mlp_wgrad.launches
     return torch.stack(losses).cpu(), state, step, got
 
 
@@ -3124,10 +3152,13 @@ def captured_training(cfg, dev, knn, scatter, routes):
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
-    from instant_nvr_tpu_torch.train.step import encoder_calls, table_grad_launches
+    from instant_nvr_tpu_torch.train.step import (encoder_calls, mlp_wgrad_calls,
+                                                  table_grad_launches)
     lr = cfg.train.lr
     calls = encoder_calls(make_render_spec(cfg))
-    encoders = {"fused_encode": calls, "fused_encode_backward": calls}
+    layers = mlp_wgrad_calls(inb.build_model_spec(cfg), make_render_spec(cfg))
+    # a replay's encoder launches and MLP weight gradients
+    encoders = {"fused_encode": calls, "fused_encode_backward": calls, "mlp_wgrad": layers}
     batches = {"mse": (train_net.synthetic_batch(cfg, dev), None),
                "patch": (train_net.to_tensors(bench.patch_batch_np(cfg), dev),
                          make_patch_loss_fn(cfg))}
@@ -3144,7 +3175,7 @@ def captured_training(cfg, dev, knn, scatter, routes):
         want = {"knn_blend": CAPTURE_STEPS, "knn_topk": 0,
                 "segmented_scatter_add": CAPTURE_STEPS * routes["segmented"],
                 "onehot_scatter_add": CAPTURE_STEPS * routes["onehot"],
-                "sorted_scatter_add": 0}
+                "sorted_scatter_add": 0, "mlp_wgrad": CAPTURE_STEPS * layers}
         graphs = graph_launches(step)
         one = {"knn_blend": 1, "segmented_scatter_add": routes["segmented"],
                "onehot_scatter_add": routes["onehot"], **encoders}
@@ -3190,7 +3221,8 @@ def captured_training(cfg, dev, knn, scatter, routes):
     add(got_c)
     want = {"knn_blend": CAPTURE_STEPS, "knn_topk": 0, "segmented_scatter_add": 0,
             "onehot_scatter_add": 0,
-            "sorted_scatter_add": CAPTURE_STEPS * FIX_ROUTES_PER_STEP}
+            "sorted_scatter_add": CAPTURE_STEPS * FIX_ROUTES_PER_STEP,
+            "mlp_wgrad": CAPTURE_STEPS * layers}
     graphs = graph_launches(step)
     if froutes != {"sorted": FIX_ROUTES_PER_STEP} or got_c != want or got_e != want \
             or graphs != [{"knn_blend": 1, "sorted_scatter_add": FIX_ROUTES_PER_STEP,
@@ -3419,6 +3451,7 @@ def program_run(route, cfg, batch, pfn, dev, knn, scatter, timed=True):
     import torch
     from instant_nvr_tpu_torch import bench
     from instant_nvr_tpu_torch.models import inb
+    from instant_nvr_tpu_torch.ops import mlp_wgrad
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.tools import profile_eval
     from instant_nvr_tpu_torch.train.compiled import CapturedStep
@@ -3443,6 +3476,7 @@ def program_run(route, cfg, batch, pfn, dev, knn, scatter, timed=True):
     def counts():
         got = launch_counts(knn, scatter)
         got["sorted_scatter_add"] = scatter.sorted_scatter_add.launches
+        got["mlp_wgrad"] = mlp_wgrad.mlp_wgrad.launches
         return got
     reset_counts(knn, scatter)
     losses = [one(i)["loss"].clone() for i in range(CAPTURE_STEPS)]
@@ -3492,7 +3526,8 @@ def programs_training(dev, knn, scatter):
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
-    from instant_nvr_tpu_torch.train.step import encoder_calls, table_grad_launches
+    from instant_nvr_tpu_torch.train.step import (encoder_calls, mlp_wgrad_calls,
+                                                  table_grad_launches)
     base = make_cfg(CFG).merged({"ep_iter": CAPTURE_EP_ITER})
     batches = {"mse": (train_net.synthetic_batch(base, dev), None),
                "patch": (train_net.to_tensors(bench.patch_batch_np(base), dev),
@@ -3506,17 +3541,19 @@ def programs_training(dev, knn, scatter):
 
     def check_launches(label, run, routes, knn_per_step):
         # the forward runs each encoder as often as knn_blend (twice under
-        # remat), its backward once
+        # remat), its backward once, and the MLPs' weight gradients once
         want = {"knn_blend": CAPTURE_STEPS * knn_per_step, "knn_topk": 0,
                 "segmented_scatter_add": CAPTURE_STEPS * routes["segmented"],
                 "onehot_scatter_add": CAPTURE_STEPS * routes["onehot"],
-                "sorted_scatter_add": CAPTURE_STEPS * routes["sorted"]}
+                "sorted_scatter_add": CAPTURE_STEPS * routes["sorted"],
+                "mlp_wgrad": CAPTURE_STEPS * layers}
         one = {k: n for k, n in (("knn_blend", knn_per_step),
                                  ("segmented_scatter_add", routes["segmented"]),
                                  ("onehot_scatter_add", routes["onehot"]),
                                  ("sorted_scatter_add", routes["sorted"]),
                                  ("fused_encode", calls * knn_per_step),
-                                 ("fused_encode_backward", calls)) if n}
+                                 ("fused_encode_backward", calls),
+                                 ("mlp_wgrad", layers)) if n}
         graphs = graph_launches(run["step"]) if "captured" in label else [one]
         if run["launches"] != want or graphs != [one] or routes["exact"] or (
                 "captured" in label and run["captured"] != (1, CAPTURE_STEPS - 3)):
@@ -3528,6 +3565,7 @@ def programs_training(dev, knn, scatter):
         cfg = base.merged(over)
         routes = table_grad_launches(inb.build_model_spec(cfg), make_render_spec(cfg))
         calls = encoder_calls(make_render_spec(cfg))
+        layers = mlp_wgrad_calls(inb.build_model_spec(cfg), make_render_spec(cfg))
         # remat runs the forward, and its knn_blend, again in the backward
         knn_per_step = 2 if cfg.get("remat", False) else 1
         for mode, (batch, pfn) in batches.items():
@@ -3843,15 +3881,21 @@ def programs_slice(dev, knn, scatter):
 RENDER_KPS = (61_056, 121_984, 121_984, 58_496, 68_608)
 
 
-def hashgrid_cases_module():
-    """``tests/test_torch_hashgrid_fused.py``, whose cases phase 17 runs (it
-    imports nothing of JAX)."""
+def tests_module(name):
+    """``tests/<name>.py``, whose cases a phase runs (it imports nothing of
+    JAX)."""
     import importlib.util
-    path = os.path.join(HERE, "tests", "test_torch_hashgrid_fused.py")
-    spec = importlib.util.spec_from_file_location("test_torch_hashgrid_fused", path)
+    path = os.path.join(HERE, "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def hashgrid_cases_module():
+    """``tests/test_torch_hashgrid_fused.py``, whose cases phases 17 and 18
+    run."""
+    return tests_module("test_torch_hashgrid_fused")
 
 
 def gathered_bytes(fn):
@@ -4035,6 +4079,72 @@ def hashgrid_backward_slice(dev):
     return out
 
 
+def mlp_wgrad_slice(dev):
+    """Phase 19 (see the module doc) -> its numbers by layer."""
+    import torch
+    from instant_nvr_tpu_torch.ops import mlp_wgrad as mw
+    t = tests_module("test_torch_mlp_wgrad")
+    t0 = time.perf_counter()
+    out = {"limit": t.LIMIT, "cases": {}, "layers": {}}
+    for shape in t.fit_layers() + list(t.EDGE_LAYERS):
+        r = t.layer_case(*shape, dev)
+        out["cases"][shape[0]] = r
+        phase("mlp-wgrad-vs-float64", layer=shape[0], parts=r["parts"], rows=r["rows"],
+              din=r["din"], dout=r["dout"], kernel=f"{r['kernel']:.3e}",
+              cublas=f"{r['cublas']:.3e}", bf16_cotangent=f"{r['control']:.3e}",
+              repeat_bit_equal=r["repeat_bit_equal"],
+              limit=f"{t.LIMIT:.3e} of the element's sum of |x g|")
+        if not r["ok"]:
+            raise AssertionError(f"mlp_wgrad {shape}: {r}")
+        torch.cuda.empty_cache()
+    phase("mlp-wgrad-cases", seconds=f"{time.perf_counter() - t0:.1f}")
+
+    # each layer of a fit step at its shape: the kernel, and the calls the
+    # port no longer makes, cuBLAS's x^T g and the bias's sum (the yardstick)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = {"kernel_device_ms": 0.0, "cublas_device_ms": 0.0, "bias_sum_device_ms": 0.0,
+            "bound_ms": 0.0}
+    for name, stacked, P, N, din, dout in t.fit_layers():
+        x, g = t.draw_operands(stacked, P, N, din, dout, gen, dev)
+        kernel = lambda: mw.weight_grads(x, g)  # noqa: E731
+        if stacked:
+            library = lambda: torch.bmm(x.transpose(1, 2), g)  # noqa: E731
+            bias = lambda: g.sum(1)  # noqa: E731
+        else:
+            library = lambda: x.t().mm(g)  # noqa: E731
+            bias = lambda: g.sum(0)  # noqa: E731
+        split, lib_split = device_split(kernel), device_split(library)
+        dev_ms = sum(split.values()) or None
+        lib_ms = sum(lib_split.values()) or None
+        bias_ms = device_ms(bias)
+        ms = cuda_median_ms(kernel)
+        bnd = bound(2 * P * N * (din + 1) * dout, 4 * P * (N * (din + dout) + (din + 1) * dout))
+        share = None if dev_ms is None else bnd[0] / dev_ms
+        out["layers"][name] = {
+            "parts": P, "rows": N, "din": din, "dout": dout, "ms": ms, "device_ms": dev_ms,
+            "kernels": {kernel_name(k): v for k, v in split.items()},
+            "library_ms": lib_ms, "library_kernels": sorted(lib_split),
+            "bias_sum_ms": bias_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "share": share}
+        for k, v in (("kernel_device_ms", dev_ms), ("cublas_device_ms", lib_ms),
+                     ("bias_sum_device_ms", bias_ms), ("bound_ms", bnd[0])):
+            step[k] = None if step[k] is None or v is None else step[k] + v
+        phase("mlp-wgrad-time", card=repr(nvidia_smi()), layer=name, parts=P, rows=N, din=din,
+              dout=dout, ms=fmt_ms(ms), device_ms=fmt_ms(dev_ms),
+              kernels=repr(out["layers"][name]["kernels"]), library_ms=fmt_ms(lib_ms),
+              library_kernels=repr(sorted(kernel_name(k) for k in lib_split)),
+              bias_sum_ms=fmt_ms(bias_ms), bound_ms=f"{bnd[0]:.4f}", bound_by=bnd[1],
+              share=("not measured" if share is None else f"{share:.1%}"))
+        del x, g
+        torch.cuda.empty_cache()
+    step["share"] = (None if step["kernel_device_ms"] is None
+                     else step["bound_ms"] / step["kernel_device_ms"])
+    out["step"] = step
+    phase("mlp-wgrad-step", card=repr(nvidia_smi()), layers=len(t.fit_layers()),
+          **{k: (f"{v:.4f}" if k != "share" else f"{v:.1%}") if v is not None
+             else "not measured" for k, v in step.items()})
+    return out
+
+
 def nccl_ranks_only(world: int) -> int:
     """``python3 chip_smoke.py --nccl-ranks N``: only phase 16(e), on N
     NCCL ranks, one a card (N cards), after the kernels' build and phase
@@ -4089,7 +4199,7 @@ def main(argv=None) -> int:
         return nccl_ranks_only(int(argv[1]))
     from instant_nvr_tpu_torch.config import make_cfg
     from instant_nvr_tpu_torch.eval.runner import AutoBudgetRenderer, eval_chunk
-    from instant_nvr_tpu_torch.ops import hashgrid, knn, scatter
+    from instant_nvr_tpu_torch.ops import hashgrid, knn, mlp_wgrad, scatter
     from instant_nvr_tpu_torch import cuda_build, run
     from instant_nvr_tpu_torch.utils import native
     from instant_nvr_tpu_torch.datasets import jpeg
@@ -4112,6 +4222,7 @@ def main(argv=None) -> int:
     scatter.load_onehot_kernel()
     scatter.load_sorted_kernel()
     hashgrid.load_fused_kernel()
+    mlp_wgrad.load_kernel()
     for name in cuda_build.KERNELS:
         ptxas = [ln.strip() for ln in cuda_build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -4166,12 +4277,15 @@ def main(argv=None) -> int:
     if enc != (2 * r["chunks_rendered"], 0):
         raise AssertionError(f"the render's encoders: (forward, backward) launches "
                              f"{enc} for {r['chunks_rendered']} chunks")
+    if mlp_wgrad.mlp_wgrad.launches:
+        raise AssertionError(f"the render launched mlp_wgrad "
+                             f"{mlp_wgrad.mlp_wgrad.launches} times")
     warm_ms = 1000.0 * float(np.median(r["frame_s"][1:]))
     phase("slice", config="inb_377", side=int(round(1024 * cfg.eval_ratio)),
           rays_per_frame=r["rays"], chunk=r["chunk"], frames=len(r["frame_s"]),
           chunks_rendered=r["chunks_rendered"], knn_launches=launches,
           encode_launches=enc[0], encode_backward_launches=enc[1],
-          frame_ms=[f"{1000 * s:.1f}" for s in r["frame_s"]],
+          mlp_wgrad_launches=mlp_wgrad.mlp_wgrad.launches, frame_ms=[f"{1000 * s:.1f}" for s in r["frame_s"]],
           warm_ms_per_frame=f"{warm_ms:.1f}",
           rays_per_s=f"{r['rays'] / (warm_ms / 1000.0):.0f}",
           peak_mem_GB=f"{torch.cuda.max_memory_allocated() / 1e9:.3f}",
@@ -4279,6 +4393,10 @@ def main(argv=None) -> int:
     #     autograd and a float64 chain, and its times
     backward_res = hashgrid_backward_slice(dev)
 
+    # 19. the MLPs' weight gradients at a fit step's shapes against float64,
+    #     and their times beside cuBLAS's
+    wgrad_res = mlp_wgrad_slice(dev)
+
     def row(name, source, replaces, err, ms, plain_ms, bnd, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"instant_nvr_tpu_torch/csrc/{source}",
@@ -4372,6 +4490,7 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"hashgrid_encode": hashgrid_res}))
     print(json.dumps({"hashgrid_backward": backward_res}))
+    print(json.dumps({"mlp_wgrad": wgrad_res}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -37,6 +37,7 @@ KERNELS: Dict[str, Tuple[str, ...]] = {
     # the lerp and the sums must round like the plain chain's: no fused
     # multiply-add
     "hashgrid_encode": ("--fmad=false",),
+    "mlp_wgrad": (),
 }
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, Path]] = {}

@@ -10,6 +10,15 @@ both operands are rounded to bf16 and multiplied in float32 (each product
 of two bf16 values is exact in f32; the sum accumulates in f32).  A bf16
 ``torch.matmul`` would round its output to bf16, which JAX does not do.
 TF32 must be off for this to hold on the card.
+
+Where a gradient is asked (every training path), the product and the bias
+go through the autograd Function :class:`_Linear`: its forward is the same
+``torch.matmul`` / ``torch.bmm`` and ``+ b``, bit for bit; its backward
+gives the input's gradient by the ``torch.matmul`` / ``torch.bmm`` autograd
+calls, and the weight's and the bias's by ``ops/mlp_wgrad.py``
+(``csrc/mlp_wgrad.cu`` on the card: x^T g and g's sum over the rows in
+float32, one launch a layer).  Calls that ask no gradient (the render, the
+evaluator, the occupancy cube) run the plain ops alone.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.mlp_wgrad import weight_grads
 
 
 class Linear(nn.Module):
@@ -53,9 +64,49 @@ def _operand(x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return x.to(compute_dtype).float()
 
 
+def _product(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stacked: bool) -> torch.Tensor:
+    """``x @ w + b`` (``stacked``: ``torch.bmm(x, w) + b[:, None, :]``)."""
+    if stacked:
+        return torch.bmm(x, w) + b[:, None, :]
+    return torch.matmul(x, w) + b
+
+
+class _Linear(torch.autograd.Function):
+    """:func:`_product` on the operands :func:`_operand` made, with the
+    weight's and the bias's gradients from
+    :func:`ops.mlp_wgrad.weight_grads`."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stacked):
+        ctx.save_for_backward(x, w)
+        ctx.stacked = stacked
+        return _product(x, w, b, stacked)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.bmm(g, w.transpose(1, 2)) if ctx.stacked else torch.matmul(g, w.t())
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            if ctx.stacked:
+                gw, gb = weight_grads(x, g)
+            else:   # matmul folds x's leading axes into its rows
+                gw, gb = weight_grads(x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1]))
+        return (gx, gw if ctx.needs_input_grad[1] else None,
+                gb if ctx.needs_input_grad[2] else None, None)
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stacked: bool) -> torch.Tensor:
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
+        return _Linear.apply(x, w, b, stacked)
+    return _product(x, w, b, stacked)
+
+
 def linear_apply(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
-    y = torch.matmul(_operand(x, compute_dtype), _operand(p.w, compute_dtype))
-    return y + p.b.float()
+    return _linear(_operand(x, compute_dtype), _operand(p.w, compute_dtype), p.b.float(),
+                   stacked=False)
 
 
 def mlp_apply(layers: Sequence, x: torch.Tensor,
@@ -68,8 +119,8 @@ def mlp_apply(layers: Sequence, x: torch.Tensor,
 
 def linear_apply_stacked(p, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """x (P, N, Din), w (P, Din, Dout), b (P, Dout) -> (P, N, Dout)."""
-    y = torch.bmm(_operand(x, compute_dtype), _operand(p.w, compute_dtype))
-    return y + p.b.float()[:, None, :]
+    return _linear(_operand(x, compute_dtype), _operand(p.w, compute_dtype), p.b.float(),
+                   stacked=True)
 
 
 def mlp_apply_stacked(layers: Sequence, x: torch.Tensor,

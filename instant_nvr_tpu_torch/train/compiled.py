@@ -67,7 +67,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..models import inb
-from ..ops import hashgrid, knn, scatter
+from ..ops import hashgrid, knn, mlp_wgrad, scatter
 from ..parallel import mesh as pmesh
 from ..renderer.inb_renderer import RenderSpec
 from ..utils import telemetry
@@ -87,7 +87,8 @@ _COUNTERS = ((knn.knn_blend, "launches"), (knn.knn_topk, "launches"),
              (scatter.sorted_scatter_add, "launches"),
              (scatter.exact_scatter_add, "calls"),
              (hashgrid.fused_encode, "launches"),
-             (hashgrid.fused_encode_backward, "launches"))
+             (hashgrid.fused_encode_backward, "launches"),
+             (mlp_wgrad.mlp_wgrad, "launches"))
 
 Launches = Tuple[int, ...]
 

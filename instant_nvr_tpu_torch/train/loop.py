@@ -77,9 +77,12 @@ FRAME_KEYS = ("A", "big_A", "pbw", "pbw_sizes", "pbounds", "R", "Th",
               "part_pts", "part_pbw", "lengths2", "latent_index", "frame_dim")
 STATIC_KEYS = ("tbounds", "tuv", "tuv_sizes", "part_bounds")
 
-# frames whose device tensors device_batch keeps (the blend-weight volumes
-# are MBs each)
-MAX_CACHED_FRAMES = 16
+# frames whose device tensors device_batch keeps: a frame's tensors take
+# ~1.1 MB at inb_377's widths, so 256 frames (~0.3 GB) hold every training
+# frame of the configurations; with fewer, an epoch's shuffled items miss
+# the cache on most steps, and the one staging thread, which copies a
+# missed frame's tensors to the card, falls behind a ~7 ms step
+MAX_CACHED_FRAMES = 256
 
 
 def device_batch(item: Dict[str, np.ndarray], reg_dist_weight: float,

@@ -405,6 +405,15 @@ def encoder_calls(rspec: RenderSpec) -> int:
     return 3 if rspec.use_pair_reg else 2
 
 
+def mlp_wgrad_calls(mspec: inb.ModelSpec, rspec: RenderSpec) -> int:
+    """MLP linear layers of one train step that ask for a gradient (on the
+    card one launch of ``ops/mlp_wgrad.py``'s kernel each): the occupancy
+    head's and each colour group's stacked layers, and the deformer's, once
+    for the samples and once more for the pair regularizer's neighbours."""
+    layers = mspec.occ_arch[1] + 1 + sum(nl + 1 for (_, nl), _ in mspec.rgb_groups())
+    return layers + (mspec.deformer.n_layers + 1) * (2 if rspec.use_pair_reg else 1)
+
+
 def table_grad_launches(mspec: inb.ModelSpec, rspec: RenderSpec) -> Counter:
     """Table-gradient scatters of one train step by route ('segmented',
     'onehot', 'exact'): the part grids once, the deformer's table once for

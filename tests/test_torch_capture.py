@@ -50,7 +50,7 @@ from instant_nvr_tpu_torch import bench, bridge, run, train_net
 from instant_nvr_tpu_torch.config import make_cfg
 from instant_nvr_tpu_torch.eval import runner
 from instant_nvr_tpu_torch.models import deformer, inb, lpips
-from instant_nvr_tpu_torch.ops import grid_sample, hashgrid as hg, knn, scatter
+from instant_nvr_tpu_torch.ops import grid_sample, hashgrid as hg, knn, mlp_wgrad, scatter
 from instant_nvr_tpu_torch.renderer import inb_renderer as rend
 from instant_nvr_tpu_torch.train import compiled, loop
 from instant_nvr_tpu_torch.train import state as tstate
@@ -551,7 +551,8 @@ def test_capture_and_replay_count_each_graphs_launches(monkeypatch):
                 (scatter.onehot_scatter_add, "launches"),
                 (scatter.sorted_scatter_add, "launches"),
                 (scatter.exact_scatter_add, "calls"),
-                (hg.fused_encode, "launches"), (hg.fused_encode_backward, "launches")]
+                (hg.fused_encode, "launches"), (hg.fused_encode_backward, "launches"),
+                (mlp_wgrad.mlp_wgrad, "launches")]
     for fn, attr in counters:
         monkeypatch.setattr(fn, attr, 5)
 
@@ -561,20 +562,22 @@ def test_capture_and_replay_count_each_graphs_launches(monkeypatch):
         scatter.onehot_scatter_add.launches += 10
         hg.fused_encode.launches += 3
         hg.fused_encode_backward.launches += 3
+        mlp_wgrad.mlp_wgrad.launches += 13
         return {"loss": torch.zeros(())}
     graph, out, launches = compiled.capture(fake_step, stream=None)
     assert set(out) == {"loss"}
-    assert [getattr(f, a) for f, a in counters] == [5] * 7
+    assert [getattr(f, a) for f, a in counters] == [5] * 8
     assert dict(zip([f"{f.__name__}.{a}" for f, a in compiled._COUNTERS], launches)) == {
         "knn_blend.launches": 1, "knn_topk.launches": 0,
         "segmented_scatter_add.launches": 8, "onehot_scatter_add.launches": 10,
         "sorted_scatter_add.launches": 0, "exact_scatter_add.calls": 0,
-        "fused_encode.launches": 3, "fused_encode_backward.launches": 3}
+        "fused_encode.launches": 3, "fused_encode_backward.launches": 3,
+        "mlp_wgrad.launches": 13}
     _StubGraph.replays = 0
     for _ in range(3):
         compiled.replay(graph, launches)
     assert _StubGraph.replays == 3
-    assert [getattr(f, a) for f, a in counters] == [8, 29, 35, 5, 5, 14, 14]
+    assert [getattr(f, a) for f, a in counters] == [8, 29, 35, 5, 5, 14, 14, 44]
 
 
 def test_workspaces_refuse_a_first_use_under_capture(monkeypatch):
