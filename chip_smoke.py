@@ -33,12 +33,13 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      card's render against the CPU's (plain path) on a small view.
   5. train slice: full-width inb_377 MSE train steps (1,024 rays x 64
      samples) through the functions of ``python -m
-     instant_nvr_tpu_torch.train_net`` (its route: captured): 3 warm-up
-     steps and the capture, then 5 windows of 20
-     timed steps (``bench.measure``: step i draws from a generator reseeded
-     with i % 8); checks the loss and that every table gradient went through
-     the two scatter kernels; one torch.profiler window of 5 steps gives the
-     device busy share and the top kernels.
+     instant_nvr_tpu_torch.train_net`` (its route: captured):
+     ``train/compiled.py:WARMUP_STEPS`` warm-up steps and the capture, then
+     100 more steps (step i draws from a generator seeded i); checks the
+     loss and that every table gradient went through the two scatter
+     kernels; one torch.profiler window of 5 steps gives the device busy
+     share and the top kernels, and its exported trace must read the same
+     device time through ``instant_nvr_tpu_torch/tools/analyze_trace.py``.
   6. train step, card vs CPU: one full-width step on 16 rays from the same
      weights and random draws; loss, per-leaf gradients and post-Adam
      parameters at bf16-sized tolerances.
@@ -164,18 +165,8 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      steps of ``train_net --detect_anomaly``; (d) phase 9's bullet views
      written as an mp4 by the port's writer (bytes, encode ms a frame) and
      read back with its own reader.
- 14. bench: ``python -m instant_nvr_tpu_torch.bench``'s ``main`` in this
-     process at full width under ``BENCH_MODE=both``, ``BENCH_TRACE`` and
-     ``BENCH_TRACE_PATCH`` set to a temporary directory: the captured MSE
-     step and the 4,096-ray patch-LPIPS step, each 3 warm-up steps and
-     the capture, a 5-step trace and 5 windows of 20; checks its last line (the root
-     ``bench.py``'s keys with ``device``, ``power_limit``, ``route``
-     captured and 2 ``captures``, finite positive rates within their min
-     and max, the card's name and power limit) and its launches (per step
-     one ``knn_blend``, 8 segmented and 10 one-hot scatters, no
-     ``index_add_`` and no sorted scatter); reads both traces with
-     ``tools/analyze_trace.py`` (busy share, device ms a step, top
-     kernels); then runs it once more ``--eager``, untraced.
+ 14. none: the number is kept free so that phases 15-19 keep the numbers
+     the repo's notes and tests cite.
  15. captured slice (``train/compiled.py``, ``eval/runner.py:CapturedFrame``):
      (a) the full-width inb_377 MSE step and the patch-LPIPS step, 10 steps
      of each route from the seed-0 state with the same draws and an epoch
@@ -193,11 +184,7 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      frame of that checkpoint, 3 renders a route, then 2 untraced in
      turns, every map bit-equal to the eager one, and a profiled warm
      frame a route (``tools/profile_eval.py``: device ms, busy share,
-     pageable host-to-device copies); (e) ``bench.measure`` of each route
-     in turns (eager, captured, eager, captured), MSE and patch: ms a
-     step, rays/s, peak memory, captures, and a traced 5-step window on
-     the last turn of each (busy share, device ms a step); each line with
-     the card's name and power limit.
+     pageable host-to-device copies).
  16. programs (``eval/mesh.py:CapturedCube``, ``eval/evaluator.py:
      CapturedLpips``, ``train/compiled.py``'s other step routes): (a) the
      res-128 cube of phase 8's checkpoint, plain, deformed and with
@@ -271,7 +258,7 @@ Phases, each printing one line or more; any failure raises (non-zero exit):
      sums.
 Then one JSON line of kernel numbers (launches: the render, train,
 self-check, patch, evaluate, data-parallel, real-subject, orbax,
-completion, bench, captured and programs phases together, each row also with ``orbax_launches``; a KNN row's times are the render
+completion, captured and programs phases together, each row also with ``orbax_launches``; a KNN row's times are the render
 chunk's, with the train step's shape beside them as ``train_shape_*``; a
 scatter row's times are its first case, uniform keys at the main path's
 shape, with its train-step case beside them as ``train_records_*``; every
@@ -281,8 +268,7 @@ inputs as ``patch_shape_*``; ``knn_blend`` also has its launches per eval
 frame as read in the second evaluation, ``eval_frame_launches``, and its times on one eval chunk's own
 inputs as ``eval_shape_*``; every row has phase 10's launches in each
 rank, ``dp_launches_per_rank``, phase 13's, ``completion_launches``,
-and phase 14's, ``bench_launches``, with its launches per bench step,
-``bench_step_launches``, phase 15's, ``captured_launches``, and its
+phase 15's, ``captured_launches``, and its
 graphs' launches a replay, ``captured_replay_launches``, phase 16's,
 ``programs_launches``, and its step graphs' launches a replay,
 ``programs_replay_launches``; the sorted kernel's row, phase 13's only,
@@ -304,6 +290,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CFG = os.path.join(HERE, "configs", "inb", "inb_377.yaml")
 N_TIMED = 20
 PROFILE_STEPS = 5
+TRAIN_STEPS = 100             # phase 5's steps after the warm-up
 
 
 def phase(label, **kv):
@@ -894,10 +881,16 @@ def launch_counts(knn, scatter):
 
 def profile_steps(trainer, gen):
     """One torch.profiler window of PROFILE_STEPS steps -> (busy share, top
-    kernels, top ops by the device time of the kernels they launch), or
-    (None, [], []) when the trace holds no device time."""
+    kernels, top ops by the device time of the kernels they launch, summed
+    device us, ``analyze_trace.summarize`` of the window's exported trace);
+    the share is None and the lists empty when the window holds no device
+    time."""
+    import contextlib
+    import io
+    import tempfile
     import torch
     from torch.autograd import DeviceType
+    from instant_nvr_tpu_torch.tools import analyze_trace
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -906,6 +899,9 @@ def profile_steps(trainer, gen):
             trainer.step(trainer.state, trainer.batch, generator=gen)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        summary = analyze_trace.summarize(analyze_trace.find_trace(tmp), top_k=5)
     kern, ops = [], []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -918,23 +914,34 @@ def profile_steps(trainer, gen):
         (kern if e.device_type == DeviceType.CUDA else ops).append((us, e.count, e.key))
     busy = sum(k[0] for k in kern)
     if busy <= 0:
-        return None, [], []
+        return None, [], [], busy, summary
 
     def top(rows):
         rows.sort(reverse=True)
         return [f"{name[:60]}:{us / 1000 / PROFILE_STEPS:.3f}ms/step:x{n // PROFILE_STEPS}"
                 for us, n, name in rows[:10] if us > 0]
-    return busy / wall_us, top(kern), top(ops)
+    return busy / wall_us, top(kern), top(ops), busy, summary
+
+
+def seeded_steps(trainer, gen, start, n, losses):
+    """Steps ``start`` to ``start + n`` of ``trainer``; step i draws from
+    ``gen`` seeded i.  Appends a copy of each loss (a captured step's is its
+    graph's output, which the next replay overwrites)."""
+    for i in range(start, start + n):
+        gen.manual_seed(i)
+        _, stats = trainer.step(trainer.state, trainer.batch, generator=gen)
+        losses.append(stats["loss"].clone())
 
 
 def train_slice(cfg, dev, knn, scatter):
-    """Full-width MSE steps through train_net's functions, timed by the
-    bench's protocol (``bench.measure``); returns the launch counts of the
-    run and the scatter routes of one step."""
+    """Full-width MSE steps through train_net's functions: the warm-up and
+    TRAIN_STEPS more, then a profiled window; returns the launch counts of
+    the run and the scatter routes of one step."""
     import numpy as np
     import torch
-    from instant_nvr_tpu_torch import bench, train_net
+    from instant_nvr_tpu_torch import train_net
     from instant_nvr_tpu_torch.ops import mlp_wgrad
+    from instant_nvr_tpu_torch.train.compiled import WARMUP_STEPS
     from instant_nvr_tpu_torch.train.step import (encoder_calls, mlp_wgrad_calls,
                                                   table_grad_launches)
     trainer = train_net.build_trainer(cfg, dev, seed=0)
@@ -947,12 +954,10 @@ def train_slice(cfg, dev, knn, scatter):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(knn, scatter)
     losses = []
-    bench.seeded_steps(trainer.step, trainer.state, trainer.batch, gen,
-                       bench.WARMUP_STEPS + (bench.CAPTURE_STEPS
-                                             if trainer.route.name == "captured" else 0),
-                       losses)
+    # the captured route's warm-up holds its capture, one step after its own
+    warmup = WARMUP_STEPS + (1 if trainer.route.name == "captured" else 0)
+    seeded_steps(trainer, gen, 0, warmup + TRAIN_STEPS, losses)
     torch.cuda.synchronize()
-    rates = bench.measure(trainer.step, trainer.state, trainer.batch, gen, losses)
     steps = len(losses)
     counts = {"knn_blend": knn.knn_blend.launches,
               "segmented_scatter_add": scatter.segmented_scatter_add.launches,
@@ -981,21 +986,32 @@ def train_slice(cfg, dev, knn, scatter):
     if wgrad != steps * layers:
         raise AssertionError(f"train steps' MLP weight gradients: {wgrad} launches != "
                              f"{layers} a step over {steps} steps")
-    med = rates[len(rates) // 2]
     phase("train", config="inb_377", rays=n_rays, samples=trainer.rspec.n_samples,
-          steps=steps, windows=f"{bench.WINDOWS}x{bench.STEPS_PER_WINDOW}",
-          train_rays_per_sec=f"{med:.1f}", min=f"{rates[0]:.1f}",
-          max=f"{rates[-1]:.1f}", ms_per_step=f"{1000 * n_rays / med:.2f}",
-          peak_mem_GB=f"{peak / 1e9:.3f}", loss_first=f"{loss[0]:.5f}",
+          steps=steps, peak_mem_GB=f"{peak / 1e9:.3f}",
+          loss_first=f"{loss[0]:.5f}",
           loss_last=f"{loss[-1]:.5f}", routes_per_step=repr(dict(routes)),
           launches=repr(counts), route=repr(str(trainer.route)),
           encode_launches=enc[0], encode_backward_launches=enc[1],
           encoder_calls_per_step=f"{enc[1] / steps:g}", mlp_wgrad_launches=wgrad,
           mlp_wgrad_launches_per_step=f"{wgrad / steps:g}")
-    busy, top_kernels, top_ops = profile_steps(trainer, gen)
-    phase("train-profile", steps=PROFILE_STEPS,
-          device_busy=("not measured" if busy is None else f"{busy:.3f}"),
-          top_kernels=repr(top_kernels), top_ops=repr(top_ops))
+    busy, top_kernels, top_ops, device_us, summary = profile_steps(trainer, gen)
+    # the trace tool reads the same CUPTI events from the exported file: its
+    # summed device time must be the profiler's, its busy share a share
+    traced_us = 1000 * sum(summary["buckets"].values())
+    if (busy is None or summary["busy"] is None or summary["device_ms"] is None
+            or not 0 < summary["busy"] <= 1
+            or abs(traced_us - device_us) > 0.02 * device_us):
+        raise AssertionError(f"analyze_trace on the train profile: busy "
+                             f"{summary['busy']}, device ms {summary['device_ms']}, "
+                             f"{traced_us:.1f} summed device us against the "
+                             f"profiler's {device_us:.1f}")
+    top_traced = sorted(summary["buckets"].items(), key=lambda kv: -kv[1])[:5]
+    phase("train-profile", steps=PROFILE_STEPS, device_busy=f"{busy:.3f}",
+          top_kernels=repr(top_kernels), top_ops=repr(top_ops),
+          traced_busy=f"{summary['busy']:.3f}",
+          traced_device_ms_per_step=f"{summary['device_ms'] / PROFILE_STEPS:.3f}",
+          traced_top=repr([f"{k[:60]}:{ms / PROFILE_STEPS:.3f}ms/step"
+                           for k, ms in top_traced]))
     return counts, routes
 
 
@@ -2948,122 +2964,6 @@ def completion_slice(dev, knn, scatter):
     return total, results, fix_per_step, step_total
 
 
-# the last line of ``python -m instant_nvr_tpu_torch.bench`` under
-# BENCH_MODE=both: the repo's bench.py keys and the card's
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "windows", "steps_per_window",
-              "min", "max", "train_rays_per_sec_patch", "patch_min", "patch_max",
-              "vs_baseline_patch", "device", "power_limit", "route", "captures"}
-# a bench step's launches: the MSE and the patch step route alike
-BENCH_STEP_LAUNCHES = {"knn_blend": 1, "knn_topk": 0, "segmented_scatter_add": 8,
-                       "onehot_scatter_add": 10}
-
-
-def bench_slice(dev, knn, scatter):
-    """Phase 14: ``python -m instant_nvr_tpu_torch.bench`` in this process
-    at full width, both modes, both traces, on the captured route; then
-    once ``--eager``, untraced; returns (the captured run's launches, its
-    steps, the eager run's launches)."""
-    import contextlib
-    import io
-    import math
-    import tempfile
-    import torch
-    from instant_nvr_tpu_torch import bench
-    from instant_nvr_tpu_torch.tools import analyze_trace
-    with tempfile.TemporaryDirectory() as tmp:
-        traces = {"mse": os.path.join(tmp, "mse"), "patch": os.path.join(tmp, "patch")}
-        env = {"BENCH_MODE": "both", "BENCH_TRACE": traces["mse"],
-               "BENCH_TRACE_PATCH": traces["patch"]}
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        reset_counts(knn, scatter)
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(buf):
-                out = bench.main(["--cfg_file", CFG])
-        finally:
-            print(buf.getvalue(), end="", flush=True)
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k)
-                else:
-                    os.environ[k] = v
-        wall_s = time.perf_counter() - t0
-        got = launch_counts(knn, scatter)
-        exact_calls = scatter.exact_scatter_add.calls
-        last = json.loads(buf.getvalue().strip().splitlines()[-1])
-        if last != out or set(last) != BENCH_KEYS:
-            raise AssertionError(f"bench's last line {last}: keys "
-                                 f"{sorted(set(last) ^ BENCH_KEYS)} differ")
-        if (last["metric"], last["unit"], last["windows"], last["steps_per_window"],
-                last["route"], last["captures"]) != (
-                "train_rays_per_sec", "rays/s", bench.WINDOWS, bench.STEPS_PER_WINDOW,
-                "captured", 2):
-            raise AssertionError(f"bench's protocol keys: {last}")
-        for v, lo, hi, vs in ((last["value"], last["min"], last["max"], last["vs_baseline"]),
-                              (last["train_rays_per_sec_patch"], last["patch_min"],
-                               last["patch_max"], last["vs_baseline_patch"])):
-            if not (all(math.isfinite(x) and x > 0 for x in (v, lo, hi, vs))
-                    and lo <= v <= hi
-                    and abs(vs - v / bench.BASELINE_RAYS_PER_SEC) <= 1e-3):
-                raise AssertionError(f"bench rates: {v} in [{lo}, {hi}], vs {vs}")
-        smi = nvidia_smi()
-        if (last["device"] != torch.cuda.get_device_name(0)
-                or last["power_limit"] != smi.split(",")[-1].strip()):
-            raise AssertionError(f"bench's card {last['device']!r}, "
-                                 f"{last['power_limit']!r} vs {smi!r}")
-        steps = 2 * (bench.WARMUP_STEPS + bench.CAPTURE_STEPS + bench.TRACE_STEPS
-                     + bench.WINDOWS * bench.STEPS_PER_WINDOW)
-        want = {k: steps * n for k, n in BENCH_STEP_LAUNCHES.items()}
-        if got != want or exact_calls or scatter.sorted_scatter_add.launches:
-            raise AssertionError(f"bench launches {got} != {want} ({steps} steps; "
-                                 f"exact index_add_ calls {exact_calls}, sorted "
-                                 f"{scatter.sorted_scatter_add.launches})")
-        busy = {}
-        for name, d in traces.items():
-            summary = analyze_trace.summarize(analyze_trace.find_trace(d), top_k=10)
-            top = sorted(summary["buckets"].items(), key=lambda kv: -kv[1])[:5]
-            busy[name] = summary["busy"]
-            phase("bench-trace", mode=name, steps=bench.TRACE_STEPS,
-                  device_busy=("not measured" if summary["busy"] is None
-                               else f"{summary['busy']:.3f}"),
-                  device_ms_per_step=("not measured" if summary["device_ms"] is None
-                                      else f"{summary['device_ms'] / bench.TRACE_STEPS:.3f}"),
-                  top_kernels=repr([f"{k[:60]}:{ms / bench.TRACE_STEPS:.3f}ms/step"
-                                    for k, ms in top]))
-    phase("bench", card=repr(smi), seconds=f"{wall_s:.1f}", steps=steps,
-          route=last["route"], captures=last["captures"],
-          mse_rays_per_sec=last["value"], patch_rays_per_sec=last["train_rays_per_sec_patch"],
-          busy=repr(busy), launches=repr(got))
-    # the eager route, untraced, both modes
-    saved = os.environ.get("BENCH_MODE")
-    os.environ["BENCH_MODE"] = "both"
-    reset_counts(knn, scatter)
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(buf):
-            eager = bench.main(["--cfg_file", CFG, "--eager"])
-    finally:
-        print(buf.getvalue(), end="", flush=True)
-        if saved is None:
-            os.environ.pop("BENCH_MODE")
-        else:
-            os.environ["BENCH_MODE"] = saved
-    eager_got = launch_counts(knn, scatter)
-    if (set(eager) != BENCH_KEYS or eager["route"] != "eager" or eager["captures"]
-            or eager["device"] != last["device"]):
-        raise AssertionError(f"bench --eager's last line {eager}")
-    phase("bench-eager", card=repr(smi), seconds=f"{time.perf_counter() - t0:.1f}",
-          route=eager["route"], mse_rays_per_sec=eager["value"],
-          patch_rays_per_sec=eager["train_rays_per_sec_patch"],
-          captured_mse_rays_per_sec=last["value"],
-          captured_patch_rays_per_sec=last["train_rays_per_sec_patch"],
-          launches=repr(eager_got))
-    return got, steps, eager_got
-
-
 # phase 15: steps of each route from one seed-0 state, an epoch boundary
 # (an lr change of the schedule) inside them
 CAPTURE_STEPS = 10
@@ -3076,14 +2976,16 @@ def route_run(route, cfg, batch, patch_fn, dev, knn, scatter, steps=CAPTURE_STEP
     (default a seed-0 one), step i drawing from a generator seeded i ->
     (losses, state, the step, launches)."""
     import torch
-    from instant_nvr_tpu_torch import bench
+    from instant_nvr_tpu_torch import run
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.ops import mlp_wgrad
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.train.compiled import CapturedStep
+    from instant_nvr_tpu_torch.train.state import create_train_state
     from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
     mspec, rspec, lw = inb.build_model_spec(cfg), make_render_spec(cfg), make_loss_weights(cfg)
-    state = bench.new_state(cfg, dev) if state is None else state
+    if state is None:
+        state = create_train_state(cfg, run.build(cfg, dev, seed=0)[2])
     step = (make_train_step(mspec, rspec, lw, patch_fn) if route == "eager"
             else CapturedStep(mspec, rspec, lw, patch_fn, n_steps=state.step + steps))
     gen = torch.Generator(device=dev)
@@ -3148,7 +3050,7 @@ def captured_training(cfg, dev, knn, scatter, routes):
     then the patch step under fix_random; returns the captured runs'
     launches and each graph's launches a replay."""
     import torch
-    from instant_nvr_tpu_torch import bench, train_net
+    from instant_nvr_tpu_torch import train_net
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
@@ -3160,7 +3062,7 @@ def captured_training(cfg, dev, knn, scatter, routes):
     # a replay's encoder launches and MLP weight gradients
     encoders = {"fused_encode": calls, "fused_encode_backward": calls, "mlp_wgrad": layers}
     batches = {"mse": (train_net.synthetic_batch(cfg, dev), None),
-               "patch": (train_net.to_tensors(bench.patch_batch_np(cfg), dev),
+               "patch": (train_net.to_tensors(train_net.patch_batch_np(cfg), dev),
                          make_patch_loss_fn(cfg))}
     total = {}
     per_replay = {}
@@ -3351,63 +3253,6 @@ def captured_eval(dev, knn, scatter):
     return counts
 
 
-def captured_times(cfg, dev, knn, scatter):
-    """15(e): ``bench.measure`` of each route in turns (eager, captured,
-    eager, captured), MSE and patch, untraced; then one traced window a
-    route."""
-    import contextlib
-    import io
-    import tempfile
-    import torch
-    from instant_nvr_tpu_torch import bench, train_net
-    from instant_nvr_tpu_torch.models import inb
-    from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
-    from instant_nvr_tpu_torch.tools import analyze_trace
-    from instant_nvr_tpu_torch.train.compiled import CapturedStep
-    from instant_nvr_tpu_torch.train.loop import make_patch_loss_fn
-    from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
-    mspec, rspec, lw = inb.build_model_spec(cfg), make_render_spec(cfg), make_loss_weights(cfg)
-    smi = nvidia_smi()
-    n_steps = (bench.WARMUP_STEPS + bench.CAPTURE_STEPS + bench.TRACE_STEPS
-               + bench.WINDOWS * bench.STEPS_PER_WINDOW)
-    modes = {"mse": (train_net.synthetic_batch(cfg, dev), None),
-             "patch": (train_net.to_tensors(bench.patch_batch_np(cfg), dev),
-                       make_patch_loss_fn(cfg))}
-    for mode, (batch, pfn) in modes.items():
-        n_rays = int(batch["ray_o"].shape[0])
-        for turn, route in enumerate(("eager", "captured", "eager", "captured")):
-            state = bench.new_state(cfg, dev)
-            step = (make_train_step(mspec, rspec, lw, pfn) if route == "eager"
-                    else CapturedStep(mspec, rspec, lw, pfn, n_steps=n_steps))
-            gen = torch.Generator(device=dev)
-            bench.seeded_steps(step, state, batch, gen, bench.WARMUP_STEPS + (
-                bench.CAPTURE_STEPS if route == "captured" else 0))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            rates = bench.measure(step, state, batch, gen)
-            peak = torch.cuda.max_memory_allocated()
-            busy = ms_dev = None
-            if turn >= 2:
-                with tempfile.TemporaryDirectory() as tmp, \
-                        contextlib.redirect_stdout(io.StringIO()):
-                    bench.trace_window(step, state, batch, gen, tmp, mode, [])
-                    summary = analyze_trace.summarize(analyze_trace.find_trace(tmp))
-                busy, ms_dev = summary["busy"], summary["device_ms"]
-            med = rates[len(rates) // 2]
-            phase("captured-times", card=repr(smi), mode=mode, route=route, turn=turn,
-                  rays=n_rays, ms_per_step=f"{1000 * n_rays / med:.2f}",
-                  rays_per_sec=f"{med:.1f}", min=f"{rates[0]:.1f}", max=f"{rates[-1]:.1f}",
-                  peak_mem_GB=f"{peak / 1e9:.3f}",
-                  captures=getattr(step, "captures", 0),
-                  traced_busy=("not traced" if turn < 2 else
-                               "not measured" if busy is None else f"{busy:.3f}"),
-                  traced_device_ms_per_step=(
-                      "not traced" if turn < 2 else "not measured" if ms_dev is None
-                      else f"{ms_dev / bench.TRACE_STEPS:.3f}"))
-            del state, step
-    assert_workspace_zero("captured times")
-
-
 def captured_slice(dev, knn, scatter):
     """Phase 15: the captured train step and eval frame against the eager
     ones.  Returns (the launches of its captured runs, each captured
@@ -3422,7 +3267,6 @@ def captured_slice(dev, knn, scatter):
     for got in (captured_resume(dev, knn, scatter), captured_eval(dev, knn, scatter)):
         for k, v in got.items():
             counts[k] = counts.get(k, 0) + v
-    captured_times(make_cfg(CFG), dev, knn, scatter)
     return counts, per_replay
 
 
@@ -3449,20 +3293,21 @@ def program_run(route, cfg, batch, pfn, dev, knn, scatter, timed=True):
     ``CAPTURE_STEPS``, the captures and replays then, ms a step, busy
     share, device ms a step, peak memory and the run's launches."""
     import torch
-    from instant_nvr_tpu_torch import bench
+    from instant_nvr_tpu_torch import run
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.ops import mlp_wgrad
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
     from instant_nvr_tpu_torch.tools import profile_eval
     from instant_nvr_tpu_torch.train.compiled import CapturedStep
     from instant_nvr_tpu_torch.train.loop import _device_seconds
+    from instant_nvr_tpu_torch.train.state import create_train_state
     from instant_nvr_tpu_torch.train.step import make_loss_weights, make_train_step
     mspec, rspec, lw = inb.build_model_spec(cfg), make_render_spec(cfg), make_loss_weights(cfg)
     # the run's own peak: its model, moments, graph pool and activations
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    state = bench.new_state(cfg, dev)
+    state = create_train_state(cfg, run.build(cfg, dev, seed=0)[2])
     # the eager route is not traced: its timed steps are its last
     step = (make_train_step(mspec, rspec, lw, pfn) if route == "eager"
             else CapturedStep(mspec, rspec, lw, pfn, n_steps=CAPTURE_STEPS
@@ -3521,7 +3366,7 @@ def programs_training(dev, knn, scatter):
     (patch), bit for bit.  Returns the captured runs' launches and each
     graph's launches a replay, by variant and mode."""
     import torch
-    from instant_nvr_tpu_torch import bench, train_net
+    from instant_nvr_tpu_torch import train_net
     from instant_nvr_tpu_torch.config import make_cfg
     from instant_nvr_tpu_torch.models import inb
     from instant_nvr_tpu_torch.renderer.inb_renderer import make_render_spec
@@ -3530,7 +3375,7 @@ def programs_training(dev, knn, scatter):
                                                   table_grad_launches)
     base = make_cfg(CFG).merged({"ep_iter": CAPTURE_EP_ITER})
     batches = {"mse": (train_net.synthetic_batch(base, dev), None),
-               "patch": (train_net.to_tensors(bench.patch_batch_np(base), dev),
+               "patch": (train_net.to_tensors(train_net.patch_batch_np(base), dev),
                          make_patch_loss_fn(base))}
     smi = nvidia_smi()
     total, per_replay = {}, {}
@@ -4366,11 +4211,6 @@ def main(argv=None) -> int:
           launches=repr(completion_launches))
     counts = {k: counts.get(k, 0) + v for k, v in completion_launches.items()}
 
-    # 14. python -m instant_nvr_tpu_torch.bench: both modes, both traces
-    bench_launches, bench_steps, eager_bench = bench_slice(dev, knn, scatter)
-    counts = {k: v + bench_launches.get(k, 0) + eager_bench.get(k, 0)
-              for k, v in counts.items()}
-
     # 15. the captured train step and eval frame against the eager ones
     t0 = time.perf_counter()
     captured_launches, per_replay = captured_slice(dev, knn, scatter)
@@ -4475,8 +4315,6 @@ def main(argv=None) -> int:
         r["dp_launches_per_rank"] = [d.get(r["name"], 0) for d in dp_launches]
         r["orbax_launches"] = orbax_launches.get(r["name"], 0)
         r["completion_launches"] = completion_launches[r["name"]]
-        r["bench_launches"] = bench_launches.get(r["name"], 0)
-        r["bench_step_launches"] = bench_launches.get(r["name"], 0) // bench_steps
         # phase 15's, and its graphs' launches a replay (MSE, patch,
         # fix_random patch)
         r["captured_launches"] = captured_launches.get(r["name"], 0)

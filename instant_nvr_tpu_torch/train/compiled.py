@@ -11,8 +11,8 @@ route.
 
 :func:`step_route` chooses, before a run, between this route
 (``captured``) and the eager step of ``train/step.py:make_train_step``
-(``eager``, with its reason); the loop, ``train_net`` and ``bench`` print
-it.  Nothing falls back: a capture or replay that fails raises, and
+(``eager``, with its reason); the loop and ``train_net``'s synthetic run
+print it.  Nothing falls back: a capture or replay that fails raises, and
 :class:`CapturedStep` refuses a CPU device and a Gloo group.
 
 A :class:`CapturedStep` keys its graphs as jit would retrace: the model

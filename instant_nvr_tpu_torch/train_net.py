@@ -22,10 +22,13 @@ by op, as do Gloo ranks and ``--detect_anomaly``.
     python -m instant_nvr_tpu_torch.train_net --device cpu --tiny --steps 3
 
 trains instead on one fixed batch of ``N_rand`` rays from the synthetic
-scene that ``bench.py`` uses (1,200 vertices, a 32^3 pose volume, a
-128x128 view), printing loss, psnr and milliseconds per step (``--steps``
+scene of the repo's root ``bench.py`` (1,200 vertices, a 32^3 pose volume,
+a 128x128 view), printing loss, psnr and milliseconds per step (``--steps``
 selects this run).  ``--tiny`` narrows the model (and the synthetic scene)
 to the widths of the CPU tests (``__graft_entry__._flagship(tiny=True)``).
+:func:`build_trainer` is the port's one builder of this synthetic step;
+:func:`patch_batch_np` is the same scene's ``patch_size``^2 ray patch, the
+input of the patch-LPIPS step.
 The device defaults to ``cuda`` and a missing card is an error.
 
     torchrun --nproc_per_node 4 -m instant_nvr_tpu_torch.train_net --distributed ...
@@ -74,14 +77,23 @@ class Trainer(NamedTuple):
 
 def synthetic_batch_np(cfg, tiny: bool = False,
                        n_rays: int | None = None) -> Dict[str, np.ndarray]:
-    """The fixed training batch of ``bench.py`` as host arrays (``tiny``:
-    of the CPU tests)."""
+    """The fixed training batch of the root ``bench.py`` as host arrays
+    (``tiny``: of the CPU tests)."""
     from .datasets import synthetic
     scene = synthetic.make_scene(n_verts=600 if tiny else 1200,
                                  grid=16 if tiny else 32)
     side = 32 if tiny else 128
     view = synthetic.render_gt(scene, H=side, W=side)
     return synthetic.make_batch(scene, view, n_rays=n_rays or cfg.N_rand)
+
+
+def patch_batch_np(cfg) -> Dict[str, np.ndarray]:
+    """One ``patch_size``^2 ray patch of the full synthetic scene, every ray
+    in the mask (``bench.py:96-100``, at any width)."""
+    n = cfg.patch_size ** 2
+    batch = synthetic_batch_np(cfg, n_rays=n)
+    batch["ray_mask"] = np.ones(n, np.float32)
+    return batch
 
 
 def to_tensors(batch: Dict[str, np.ndarray],

@@ -46,7 +46,7 @@ from instant_nvr_tpu.renderer import inb_renderer as jrend
 from instant_nvr_tpu.train import loop as jloop
 from instant_nvr_tpu.train import state as jstate
 from instant_nvr_tpu.train import step as jstep
-from instant_nvr_tpu_torch import bench, bridge, run, train_net
+from instant_nvr_tpu_torch import bridge, run, train_net
 from instant_nvr_tpu_torch.config import make_cfg
 from instant_nvr_tpu_torch.eval import runner
 from instant_nvr_tpu_torch.models import deformer, inb, lpips
@@ -507,16 +507,15 @@ def test_step_route_under_detect_anomaly():
 
 
 def test_captured_step_refuses_the_cpu():
-    fl = bench.flagship(CFG, CPU, tiny=True)
-    step = compiled.CapturedStep(fl.mspec, fl.rspec, fl.lw)
-    state = bench.new_state(fl.cfg, CPU)
+    t = train_net.build_trainer(make_cfg(CFG).merged(train_net.TINY), CPU, tiny=True)
+    step = compiled.CapturedStep(t.mspec, t.rspec, t.lw)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        step(state, fl.batch, generator=torch.Generator().manual_seed(0))
-    assert state.step == 0 and step.captures == 0
+        step(t.state, t.batch, generator=torch.Generator().manual_seed(0))
+    assert t.state.step == 0 and step.captures == 0
 
 
 def test_eager_flags_on_the_cpu(capsys):
-    """``--eager`` on train_net, run and bench; the CPU's routes are eager."""
+    """``--eager`` on train_net and run; the CPU's routes are eager."""
     train_net.main(["--device", "cpu", "--tiny", "--steps", "1", "--eager",
                     "--cfg_file", CFG])
     assert "step route eager (--eager)" in capsys.readouterr().out
@@ -524,7 +523,6 @@ def test_eager_flags_on_the_cpu(capsys):
               "N_samples", "8"])
     assert "route eager (--eager)" in capsys.readouterr().out
     assert run.parse_args(["--eager"]).eager and not run.parse_args([]).eager
-    assert bench.parse_args(["--eager"]).eager
     assert train_net.parse_args(["--eager"]).eager
 
 

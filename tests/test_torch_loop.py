@@ -345,7 +345,8 @@ def test_train_net_runs_the_loop_on_cpu(subject, tmp_path):
 
 GUARD = r"""
 import os, sys
-for name in ("cv2", "imageio", "PIL", "jax", "jaxlib", "tensorflow"):
+for name in ("cv2", "imageio", "PIL", "jax", "jaxlib", "tensorflow",
+             "instant_nvr_tpu", "__graft_entry__"):
     sys.modules[name] = None            # any import of them raises ImportError
 import torch
 from instant_nvr_tpu_torch.datasets.fake_zju import write_fake_dataset
@@ -363,6 +364,14 @@ cfg = make_cfg("configs/inb/inb_fake.yaml").merged(train_net.TINY).merged({
     "result_dir": exp, "trained_model_dir": exp + "/model", "record_dir": exp + "/rec"})
 res = loop.train(cfg, torch.device("cpu"), resume=False)
 assert len(res.losses) == 1 and res.state.step == 1, res
+# train_net's synthetic run and its patch batch, whose imports are lazy
+import contextlib, io
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    train_net.main(["--device", "cpu", "--tiny", "--steps", "1"])
+assert buf.getvalue().startswith("step 0: loss "), buf.getvalue()
+patch = train_net.patch_batch_np(cfg)
+assert patch["ray_mask"].shape == (cfg.patch_size ** 2,), sorted(patch)
 # a committed JPEG fixture decodes to its digest, and a JPEG subject's item
 import hashlib, json
 import numpy as np
@@ -388,8 +397,9 @@ print("ok", res.losses[0])
 
 
 def test_loop_runs_without_cv2_imageio_pil_or_jax(tmp_path):
-    """One training step, a JPEG fixture decoded to its digest and one item
-    of the JPEG subject, with cv2, imageio, PIL and jax blocked."""
+    """One training step, train_net's synthetic step and patch batch, a JPEG
+    fixture decoded to its digest and one item of the JPEG subject, with
+    cv2, imageio, PIL, jax and the JAX package blocked."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", GUARD, str(tmp_path / "subject"),
                           str(tmp_path / "exp")], cwd=ROOT, env=env,

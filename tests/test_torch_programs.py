@@ -43,7 +43,7 @@ from instant_nvr_tpu.renderer import inb_renderer as jrend
 from instant_nvr_tpu.train import checkpoint as jck
 from instant_nvr_tpu.train import state as jstate
 from instant_nvr_tpu.train import step as jstep
-from instant_nvr_tpu_torch import bench, bridge, run
+from instant_nvr_tpu_torch import bridge, run, train_net
 from instant_nvr_tpu_torch.config import Config, make_cfg
 from instant_nvr_tpu_torch.eval import evaluator, mesh, runner
 from instant_nvr_tpu_torch.models import inb, lpips
@@ -208,19 +208,20 @@ def test_step_routes_of_the_new_programs(over, kw, want):
 
 @pytest.mark.parametrize("program", ["step", "frame", "cube", "lpips"])
 def test_captured_programs_refuse_the_cpu(program):
-    fl = bench.flagship(CFG, CPU, tiny=True)
-    model = bench.new_state(fl.cfg, CPU).model
+    cfg = make_cfg(CFG).merged(train_net.TINY)
+    t = train_net.build_trainer(cfg, CPU, tiny=True)
+    model = t.state.model
     if program == "step":
-        call = lambda: compiled.CapturedStep(fl.mspec, fl.rspec, fl.lw)(
-            bench.new_state(fl.cfg, CPU), fl.batch, generator=torch.Generator())
+        call = lambda: compiled.CapturedStep(t.mspec, t.rspec, t.lw)(
+            t.state, t.batch, generator=torch.Generator())
     elif program == "frame":
-        rays = {k: fl.batch[k] for k in runner.RAY_KEYS}
-        meta = {k: fl.batch[k] for k in runner.META_KEYS if k in fl.batch}
-        call = lambda: runner.CapturedFrame(fl.mspec, fl.rspec, 64)(model, rays, meta)
+        rays = {k: t.batch[k] for k in runner.RAY_KEYS}
+        meta = {k: t.batch[k] for k in runner.META_KEYS if k in t.batch}
+        call = lambda: runner.CapturedFrame(t.mspec, t.rspec, 64)(model, rays, meta)
     elif program == "cube":
-        args = mesh.cube_inputs(fl.cfg, fl.batch_np, 8, CPU)
+        args = mesh.cube_inputs(cfg, train_net.synthetic_batch_np(cfg, tiny=True), 8, CPU)
         cube = mesh.CapturedCube()
-        call = lambda: cube(fl.mspec, model, args[0], args[1], False, args[2],
+        call = lambda: cube(t.mspec, model, args[0], args[1], False, args[2],
                             mesh.OCC_CHUNK)
     else:
         img = torch.zeros((32, 32, 3))
